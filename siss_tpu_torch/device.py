@@ -1,0 +1,19 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises.
+
+    The port never carries on silently on the CPU: a caller who wants the
+    CPU (the tests, the plain kernel versions) asks for it by name.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return dev
