@@ -10,21 +10,41 @@ prints no result):
 2. Build the CUDA kernels from ``siss_tpu_torch/ops/csrc`` (nvcc, sm_90a).
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
-   (t = 999 noising and the keep/forget mixture), the same in bf16, and
-   ragged shapes (28×28×1, and 15×15×3, whose row length takes the
-   one-element-per-load path). The reduce runs twice and must repeat bit
-   for bit. Then time kernel and plain version at the main-path shape.
-4. One fused SISS train step of a tiny UNet on the card against the same
-   step on the CPU (plain versions), from the same weights and draws.
-5. The main path at full width: UNet2DConfig.celebahq_256(), microbatch 16
-   × 4 accumulation steps, fp32 params with bf16 autocast, AdamW(5e-6,
-   betas (0.95, 0.999), wd 1e-6), scaling_norm 500, λ 0.5, t ≡ 999, EMA;
-   random weights from a seed; 1 warm-up and 3 timed steps. The kernels'
-   launch counts are set to 0 just before and read just after: each step
-   must launch the reduce 4 times and the backward 8 times.
+   (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
+   step's shape [1, 64, 64, 4] fp32 with the SD schedule's t = 999 (one
+   row split into 8 chunks), and ragged shapes (28×28×1, and 15×15×3,
+   whose row length takes the one-element-per-load path). The reduce runs
+   twice and must repeat bit for bit. Then time kernel and plain version
+   at the celeb and the SD shapes.
+4. Hold the three flash-attention kernels (forward, dK/dV, dQ) against
+   their plain versions on the card: o, lse, dq, dk and dv at the SD
+   shapes (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) and at
+   (2, 4, 256, 8), (1, 2, 128, 128) and (1, 2, 128, 24) (d padded to 40),
+   each in fp32 and bf16, with the operands in the UNet's strided
+   [B, N, H, d] layout: every element within its bound, and in bf16 the
+   RMS error within its bound too. lse must repeat bit for bit; the
+   autograd.Function must give the kernels' gradients; a shape the kernels
+   cannot take must raise. Then time kernel, plain version and PyTorch's
+   scaled_dot_product_attention at the SD shapes.
+5. One fused SISS train step of a tiny UNet on the card against the same
+   step on the CPU (plain versions), from the same weights and draws; then
+   the same for the SD latent step of a tiny conditional UNet whose level-0
+   self-attention (256 tokens) runs the flash kernels.
+6. The celeb main path at full width: UNet2DConfig.celebahq_256(),
+   microbatch 16 × 4 accumulation steps, fp32 params with bf16 autocast,
+   AdamW(5e-6, betas (0.95, 0.999), wd 1e-6), scaling_norm 500, λ 0.5,
+   t ≡ 999, EMA; random weights from a seed; 1 warm-up and 3 timed steps.
+   Each step must launch the reduce 4 times and the SISS backward 8 times.
+7. The SD main path at full width (``profile_step.make_sd_path``, the
+   ``configs/delete_sd.yaml`` step of ``bench.py --workload sd`` with
+   ``attention_impl="flash"``): the sd_v1 UNet, microbatch 1 × 16
+   accumulation steps; 1 warm-up and 2 timed steps. Each step must launch
+   flash_fwd 160, flash_bwd_dkv 320, flash_bwd_dq 320, siss_reduce 16 and
+   siss_bwd 32 times.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+For each path the kernels' launch counts are set to 0 just before it and
+read just after. The line before the last is the kernels' JSON record; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -40,8 +60,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, H100 SXM data sheet
 REDUCE_FLOPS_PER_ELEM = 14     # 2 residuals (mul+sub), 2 eps (mul+sub), 4 squares+adds
 BWD_FLOPS_PER_ELEM = 11        # 2 residuals, 2 eps, 2 weights, 1 add
+# The SISS kernels' operands on the SD step: one [64, 64, 4] latent per microbatch.
+SISS_SD_SHAPE = (1, 64, 64, 4)
+# (B, H, N, d): the SD UNet's flash sites (64×64 and 32×32 latents), then
+# a small head dim, the largest one, and one padded to a built head dim.
+FLASH_SD_SHAPES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
+FLASH_SHAPES = FLASH_SD_SHAPES + ((2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24))
+# Matrix-product operations per B·H·N²·d of each flash kernel (2 per
+# multiply-add): the forward's S and P·V; dK/dV recomputes S and dP and
+# forms dV and dK; dQ recomputes S and dP and forms dQ.
+FLASH_OPS = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
 
 
 def card_line() -> str:
@@ -70,12 +101,12 @@ def gpu_ms(torch, fn, launches=20, repeats=5):
     return times
 
 
-def main_path_inputs(torch, shape, dtype, seed):
-    """preds, mix, keep, forget, gamma, sigma as the fused step makes them at t = 999."""
-    from siss_tpu_torch.diffusion import NoiseSchedule, q_sample
+def main_path_inputs(torch, sched, shape, dtype, seed):
+    """preds, mix, keep, forget, gamma, sigma as the fused step makes them
+    at t = 999 of the noise schedule ``sched``."""
+    from siss_tpu_torch.diffusion import q_sample
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    sched = NoiseSchedule.create(1000, "linear", device="cuda")
     B = shape[0]
     keep, forget, noise, preds = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
     t = torch.full((B,), 999, device="cuda")
@@ -162,22 +193,12 @@ def check_kernels(torch, name, big, gamma, sigma, rtol_sum, rtol_iw):
     return reduce_err, bwd_err
 
 
-def phase_kernels(torch):
+def siss_times(torch, big, gamma, sigma):
+    """Kernel and plain ms of both SISS kernels on one input set, in turns
+    (plain, kernel, kernel, plain), and each kernel's bound."""
     from siss_tpu_torch.ops import siss
 
-    main_shape = (16, 256, 256, 3)
-    big, gamma, sigma = main_path_inputs(torch, main_shape, torch.float32, seed=0)
-    errs = check_kernels(torch, "main fp32 [16,256,256,3]", big, gamma, sigma, 1e-5, 1e-3)
-    bf, g_bf, s_bf = main_path_inputs(torch, main_shape, torch.bfloat16, seed=0)
-    check_kernels(torch, "main bf16 [16,256,256,3]", bf, g_bf, s_bf, 1e-2, 1e-2)
-    for shape, dtype, rtol in (((3, 28, 28, 1), torch.float32, 1e-5),
-                               ((2, 15, 15, 3), torch.float32, 1e-5),
-                               ((3, 28, 28, 1), torch.bfloat16, 1e-2)):
-        r = random_inputs(torch, shape, dtype, seed=1, lo=0.3, hi=0.7)
-        check_kernels(torch, f"ragged {str(dtype)[6:]} {list(shape)}", *r, rtol, max(rtol, 1e-3))
-
-    # Timing at the main-path shape, in turns: plain, kernel, kernel, plain.
-    B = main_shape[0]
+    B = big[0].shape[0]
     flat = [x.reshape(B, -1) for x in big]
     inv_sigma = 1.0 / sigma
     cx, ca = torch.full((B,), 0.7, device="cuda"), torch.full((B,), 1.3, device="cuda")
@@ -187,76 +208,311 @@ def phase_kernels(torch):
         "siss_bwd": (lambda: siss.siss_grad_preds(*flat, gamma, inv_sigma, cx, ca),
                      lambda: siss.siss_grad_preds_plain(*flat, gamma, inv_sigma, cx, ca)),
     }
-    timings = {}
-    for name, (kernel, plain) in fns.items():
-        p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
-        timings[name] = (statistics.median(k1 + k2), statistics.median(p1 + p2))
     elems = B * flat[0].shape[1]
     esize = flat[0].element_size()
     bounds = {
         "siss_reduce": (4 * elems * esize + 2 * B * 4 + 4 * B * 4, REDUCE_FLOPS_PER_ELEM * elems),
         "siss_bwd": (4 * elems * esize + 4 * B * 4 + elems * 4, BWD_FLOPS_PER_ELEM * elems),
     }
-    record = {}
-    for name, (nbytes, flops) in bounds.items():
+    times = {}
+    for name, (kernel, plain) in fns.items():
+        p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
+        nbytes, flops = bounds[name]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_FP32_FLOPS * 1e3
-        ms, plain_ms = timings[name]
-        record[name] = dict(max_abs_err=errs[0] if name == "siss_reduce" else errs[1], ms=ms,
-                            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                            bound_by="bytes" if t_bytes >= t_ops else "operations",
-                            library_ms=None)
-        print(f"kernel time {name} [16,256,256,3] fp32: {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB)")
+        times[name] = dict(ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"kernel time {name} {list(big[0].shape)} {str(big[0].dtype)[6:]}: "
+              f"{times[name]['ms']:.4f} ms  plain {times[name]['plain_ms']:.4f} ms  "
+              f"bound {times[name]['bound_ms']:.3g} ms ({nbytes / 1e6:.3g} MB)")
+    return times
+
+
+def phase_kernels(torch):
+    from siss_tpu_torch.diffusion import NoiseSchedule, sd_noise_schedule
+
+    celeb = NoiseSchedule.create(1000, "linear", device="cuda")
+    main_shape = (16, 256, 256, 3)
+    big, gamma, sigma = main_path_inputs(torch, celeb, main_shape, torch.float32, seed=0)
+    errs = check_kernels(torch, "main fp32 [16,256,256,3]", big, gamma, sigma, 1e-5, 1e-3)
+    bf, g_bf, s_bf = main_path_inputs(torch, celeb, main_shape, torch.bfloat16, seed=0)
+    check_kernels(torch, "main bf16 [16,256,256,3]", bf, g_bf, s_bf, 1e-2, 1e-2)
+    # The SD step's operands: fp32 (the UNet's output type), SD schedule.
+    sd = main_path_inputs(torch, sd_noise_schedule(device="cuda"), SISS_SD_SHAPE, torch.float32,
+                          seed=2)
+    check_kernels(torch, f"SD fp32 {list(SISS_SD_SHAPE)}", *sd, 1e-5, 1e-3)
+    for shape, dtype, rtol in (((3, 28, 28, 1), torch.float32, 1e-5),
+                               ((2, 15, 15, 3), torch.float32, 1e-5),
+                               ((3, 28, 28, 1), torch.bfloat16, 1e-2)):
+        r = random_inputs(torch, shape, dtype, seed=1, lo=0.3, hi=0.7)
+        check_kernels(torch, f"ragged {str(dtype)[6:]} {list(shape)}", *r, rtol, max(rtol, 1e-3))
+
+    # The JSON record holds the celeb shape; the SD shape's times are printed.
+    record = siss_times(torch, big, gamma, sigma)
+    siss_times(torch, *sd)
+    for name, err in zip(("siss_reduce", "siss_bwd"), errs):
+        record[name].update(max_abs_err=err, library_ms=None)
     return record
 
 
-def phase_tiny_step_parity(torch):
-    """The whole fused step on the card (kernels) against the CPU (plain
-    versions), tiny UNet, fp32, no TF32, the same weights and draws."""
-    from siss_tpu_torch.diffusion import NoiseSchedule
-    from siss_tpu_torch.models import UNet2DConfig, build_unet
-    from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
-                                      build_optimizer, unet_eps_apply)
+def flash_bound(torch, ref, terms, dtype, N):
+    """Largest |kernel − plain| each element of a flash output may show.
+
+    Each output element is a sum over N products, ``terms`` the sum of
+    their magnitudes (Σ|p|·|v| for o, and so on). Both versions sum in
+    fp32, in other orders: up to ~log2(N) fp32 roundings of ``terms`` (a
+    factor 32 of headroom on top). Each also rounds one factor of every
+    product to the operands' type (P, or dS) before the product, at other
+    places (the forward kernel rounds P before normalising it), so the two
+    may differ by 2u of ``terms``, u the type's unit roundoff. A bf16
+    output is rounded once more, where a last-bit difference may flip the
+    rounding: 2u of the element."""
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    return 2 * u * ref.float().abs() + (2 * u + 32 * math.log2(N) * 2.0 ** -24) * terms
+
+
+def rms(t):
+    return float(t.float().square().mean().sqrt())
+
+
+def flash_rms_bound(ref, quad):
+    """Largest RMS, over one bf16 output, of kernel − plain.
+
+    ``flash_bound`` adds the bf16 roundings of an element's terms as if all
+    had one sign. They are independent from term to term, each at most u =
+    2^-8 relative in either version, so their sum has an RMS of at most
+    u·√(2/3) of ``quad`` = √(Σ term²); 2u·rms(quad) leaves a factor 2.4.
+    The last rounding of two nearby values differs by at most one ulp,
+    ≤ 2u of the element: 2u·rms(ref). The fp32 sums' order differences,
+    log2(N)·2^-24 of Σ|term| ≤ √N·quad, stay under 1% of 2u·quad for
+    N ≤ 4096."""
+    return 2 * 2.0 ** -8 * (rms(quad) + rms(ref))
+
+
+def check_flash_case(torch, shape, dtype, seed):
+    """Kernels against plain versions on one input set; max abs errors."""
+    from siss_tpu_torch.ops import flash_attention as fa
+    from siss_tpu_torch.ops import launch_counts
+
+    B, H, N, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # The UNet's layout: [B, H, N, d] views of [B, N, H, d] projections.
+    q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    name = f"{list(shape)} {str(dtype)[6:]}"
+    before = dict(launch_counts)
+    o, lse = fa.flash_fwd(q, k, v, scale)
+    o2, lse2 = fa.flash_fwd(q, k, v, scale)
+    di = fa.row_dot(o, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, lse, do, di, scale)
+    dq = fa.flash_bwd_dq(q, k, v, lse, do, di, scale)
+    torch.cuda.synchronize()
+    launched = {key: launch_counts[key] - before[key] for key in FLASH_OPS}
+    if launched != {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
+        raise AssertionError(f"flash {name}: the wrappers did not launch the kernels: {launched}")
+    if not (torch.equal(lse, lse2) and torch.equal(o, o2)):
+        raise AssertionError(f"flash {name}: the forward kernel did not repeat bit for bit")
+
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, lse, do, di, scale)
+    # Σ of the magnitudes of each output element's terms.
+    p, ds = fa._probs(q, k, v, lse, do, di, scale)
+    qa, ka, va, doa = (t.float().abs() for t in (q, k, v, do))
+    terms = {"o": p @ va, "lse": lse_p.abs(), "dv": p.transpose(-1, -2) @ doa,
+             "dk": ds.abs().transpose(-1, -2) @ qa, "dq": ds.abs() @ ka}
+    # √(Σ term²) of each element, for the bf16 outputs' RMS bound.
+    quad = {}
+    if dtype == torch.bfloat16:
+        p2, ds2 = p.square(), ds.square()
+        quad = {"o": (p2 @ va.square()).sqrt(), "dv": (p2.transpose(-1, -2) @ doa.square()).sqrt(),
+                "dk": (ds2.transpose(-1, -2) @ qa.square()).sqrt(),
+                "dq": (ds2 @ ka.square()).sqrt()}
+        del p2, ds2
+    del p, ds
+    errs, rms_ratios = {}, []
+    for kernel, label, got, want, out_dtype in (
+            ("flash_fwd", "o", o, o_p, dtype), ("flash_fwd", "lse", lse, lse_p, torch.float32),
+            ("flash_bwd_dkv", "dk", dk, dk_p, dtype), ("flash_bwd_dkv", "dv", dv, dv_p, dtype),
+            ("flash_bwd_dq", "dq", dq, dq_p, dtype)):
+        err = (got.float() - want.float()).abs()
+        bound = flash_bound(torch, want, terms[label], out_dtype, N)
+        if not bool((err <= bound).all()):
+            worst = int(torch.argmax(err - bound))
+            raise AssertionError(f"flash {name} {label}: |err| {float(err.flatten()[worst]):.3e} "
+                                 f"above its bound {float(bound.flatten()[worst]):.3e}")
+        if label in quad:
+            rms_err, rms_bound = rms(err), flash_rms_bound(want, quad[label])
+            if not rms_err <= rms_bound:
+                raise AssertionError(f"flash {name} {label}: RMS error {rms_err:.3e} above its "
+                                     f"bound {rms_bound:.3e}")
+            rms_ratios.append(f"{label} {rms_err / rms_bound:.3f}")
+        errs[kernel] = max(errs.get(kernel, 0.0), float(err.max()))
+
+    # The autograd.Function on the card: the same kernels, so the same bits.
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, scale), leaves, do)
+    for label, got, want in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"flash {name}: FlashAttention's {label} is not the kernels'")
+    print(f"flash check {name}: ok  " + "  ".join(f"{k} max_abs_err={e:.3e}" for k, e in errs.items())
+          + (f"  RMS err / bound: {', '.join(rms_ratios)}" if rms_ratios else ""))
+    return errs
+
+
+def phase_flash_kernels(torch):
+    import torch.nn.functional as F
+
+    from siss_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs[shape, dtype] = check_flash_case(torch, shape, dtype, seed=len(errs))
+    # On a CUDA tensor the wrapper launches its kernel or raises.
+    for shape, match in (((1, 2, 200, 40), "N %"), ((1, 2, 128, 136), "head_dim")):
+        x = torch.zeros((shape[0], shape[2], shape[1], shape[3]), device="cuda").transpose(1, 2)
+        try:
+            fa.flash_fwd(x, x, x, 0.1)
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"flash_fwd took an unsupported shape {shape} on the card")
+
+    # Timing at the SD shapes in bf16 (the main path's type), in turns:
+    # plain, kernel, kernel, plain; then SDPA's forward and forward+backward.
+    record = {}
+    for shape in FLASH_SD_SHAPES:
+        B, H, N, d = shape
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
+                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd(q, k, v, scale)
+        di = fa.row_dot(o, do)
+        fns = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale),
+                          lambda: fa.flash_attention_plain(q, k, v, scale)),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
+                              lambda: fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale),
+                             lambda: fa.flash_bwd_dq_plain(q, k, v, lse, do, di, scale)),
+        }
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa_fwd = statistics.median(gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+            *leaves, scale=scale)))
+        sdpa_all = statistics.median(gpu_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, scale=scale), leaves, do)))
+        bhn2d = B * H * N * N * d
+        elems = B * H * N * d
+        nbytes = {"flash_fwd": 4 * elems * 2 + B * H * N * 4,
+                  "flash_bwd_dkv": 6 * elems * 2 + 2 * B * H * N * 4,
+                  "flash_bwd_dq": 5 * elems * 2 + 2 * B * H * N * 4}
+        this = {}
+        for name, (kernel, plain) in fns.items():
+            p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
+            t_bytes = nbytes[name] / H100_BYTES_PER_S * 1e3
+            t_ops = FLASH_OPS[name] * bhn2d / H100_BF16_FLOPS * 1e3
+            rec = dict(max_abs_err=errs[shape, torch.bfloat16][name],
+                       ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       library_ms=sdpa_fwd if name == "flash_fwd" else sdpa_all - sdpa_fwd)
+            this[name] = rec
+            print(f"kernel time {name} {list(shape)} bf16: {rec['ms']:.4f} ms  plain "
+                  f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
+                  f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd (fwd+bwd − fwd)'} "
+                  f"{rec['library_ms']:.4f} ms")
+        print(f"  whole backward {list(shape)} bf16: kernels "
+              f"{this['flash_bwd_dkv']['ms'] + this['flash_bwd_dq']['ms']:.4f} ms  bound "
+              f"{10 * bhn2d / H100_BF16_FLOPS * 1e3:.4f} ms (10·B·H·N²·d)  SDPA "
+              f"{sdpa_all - sdpa_fwd:.4f} ms")
+        # The JSON record holds the 64×64-latent sites, the step's heaviest.
+        record = record or this
+    return record
+
+
+def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, shape, cond=None):
+    """One fused step on the card (kernels) against the CPU (plain
+    versions), fp32, no TF32, the same weights and draws. Returns the
+    card run's kernel launch counts."""
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.train import TrainState, build_deletion_train_step, build_optimizer
     from siss_tpu_torch.train.step import draw_microbatch_randomness
+
+    A, mb = step_cfg.grad_accum_steps, 4
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randn(A, mb, *shape, generator=gen) for k in ("all", "deletion")}
+    if cond is not None:
+        batch["conditioning"] = torch.randn(A, mb, *cond, generator=gen)
+    draws = draw_microbatch_randomness(gen, A, mb, shape, step_cfg.t_min, step_cfg.t_max, "cpu")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(dev)
+        opt, sched = build_optimizer({"_target_": "sgd", "lr": 1.0}, model.parameters())
+        step = build_deletion_train_step(eps_apply, schedule(dev), step_cfg)
+        reset_launch_counts()
+        state, metrics = step(TrainState.create(model, opt, sched),
+                              {k: v.to(dev) for k, v in batch.items()},
+                              draws={k: v.to(dev) for k, v in draws.items()})
+        results[dev] = ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                        {k: float(v) for k, v in metrics.items()}, dict(launch_counts))
+    (p_cpu, m_cpu, _), (p_gpu, m_gpu, counts) = results["cpu"], results["cuda"]
+    for k in m_cpu:
+        rtol = 1e-3 if k.startswith("importance_weight") else 1e-4
+        if abs(m_gpu[k] - m_cpu[k]) > 1e-6 + rtol * abs(m_cpu[k]):
+            raise AssertionError(f"{name} metric {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
+    err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    for k in p_cpu:
+        torch.testing.assert_close(p_gpu[k], p_cpu[k], rtol=1e-4, atol=1e-6,
+                                   msg=lambda m: f"{name} param {k}: {m}")
+    print(f"{name} card vs CPU: ok  params max_abs_err={err:.3e}  "
+          f"scaling_factor={m_gpu['gradient/scaling_factor']:.6g}  card launches {counts}")
+    return counts
+
+
+def phase_tiny_step_parity(torch):
+    """The tiny celeb-like step, then the tiny SD step, card against CPU."""
+    import dataclasses
+
+    from siss_tpu_torch.diffusion import NoiseSchedule, sd_noise_schedule
+    from siss_tpu_torch.models import (UNet2DConditionConfig, UNet2DConfig, build_unet,
+                                       build_unet_cond)
+    from siss_tpu_torch.train import DeletionStepConfig, cond_unet_eps_apply, unet_eps_apply
 
     cfg = UNet2DConfig(sample_size=16, in_channels=3, out_channels=3, block_out_channels=(32, 64),
                        down_block_types=("DownBlock2D", "AttnDownBlock2D"),
                        up_block_types=("AttnUpBlock2D", "UpBlock2D"), attention_head_dim=None,
                        norm_num_groups=8, flip_sin_to_cos=False, freq_shift=1, downsample_padding=0)
-    step_cfg = DeletionStepConfig(scaling_norm=5.0, grad_accum_steps=2, t_min=900, t_max=1000)
-    gen = torch.Generator().manual_seed(0)
-    batch = {k: torch.randn(2, 4, 16, 16, 3, generator=gen) for k in ("all", "deletion")}
-    draws = draw_microbatch_randomness(gen, 2, 4, (16, 16, 3), 900, 1000, "cpu")
-    results = {}
-    for dev in ("cpu", "cuda"):
-        model = build_unet(cfg, seed=3, device=dev)
-        opt, sched = build_optimizer({"_target_": "sgd", "lr": 1.0}, model.parameters())
-        step = build_deletion_train_step(unet_eps_apply, NoiseSchedule.create(1000, device=dev), step_cfg)
-        state, metrics = step(TrainState.create(model, opt, sched),
-                              {k: v.to(dev) for k, v in batch.items()},
-                              draws={k: v.to(dev) for k, v in draws.items()})
-        results[dev] = ({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                        {k: float(v) for k, v in metrics.items()})
-    (p_cpu, m_cpu), (p_gpu, m_gpu) = results["cpu"], results["cuda"]
-    for k in m_cpu:
-        rtol = 1e-3 if k.startswith("importance_weight") else 1e-4
-        if abs(m_gpu[k] - m_cpu[k]) > 1e-6 + rtol * abs(m_cpu[k]):
-            raise AssertionError(f"tiny step metric {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
-    err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
-    for k in p_cpu:
-        torch.testing.assert_close(p_gpu[k], p_cpu[k], rtol=1e-4, atol=1e-6,
-                                   msg=lambda m: f"tiny step param {k}: {m}")
-    print(f"tiny step card vs CPU: ok  params max_abs_err={err:.3e}  "
-          f"scaling_factor={m_gpu['gradient/scaling_factor']:.6g}")
+    step_card_vs_cpu(torch, "tiny step", lambda dev: build_unet(cfg, seed=3, device=dev),
+                     unet_eps_apply, lambda dev: NoiseSchedule.create(1000, device=dev),
+                     DeletionStepConfig(scaling_norm=5.0, grad_accum_steps=2, t_min=900,
+                                        t_max=1000), (16, 16, 3))
+
+    # sample_size 16: level 0 has 256 tokens, so its self-attention (4 heads
+    # of 8) runs the flash kernels; the 64-token mid block stays einsum.
+    cond_cfg = dataclasses.replace(UNet2DConditionConfig.tiny(), sample_size=16,
+                                   attention_impl="flash")
+    counts = step_card_vs_cpu(
+        torch, "tiny SD step", lambda dev: build_unet_cond(cond_cfg, seed=3, device=dev),
+        cond_unet_eps_apply, lambda dev: sd_noise_schedule(device=dev),
+        DeletionStepConfig(scaling_norm=750.0, grad_accum_steps=2, t_min=999, t_max=1000),
+        (16, 16, 4), cond=(7, cond_cfg.cross_attention_dim))
+    if not all(counts[k] > 0 for k in FLASH_OPS):
+        raise AssertionError(f"the tiny SD step on the card did not run every flash kernel: {counts}")
 
 
-def phase_main_path(torch):
+def drive_path(torch, name, make, steps, per_step, images_per_step):
+    """Drive a full-width main path for ``steps`` steps (the first a
+    warm-up) with the launch counts set to 0 just before and read just
+    after; every kernel must have launched ``per_step`` times a step (0 for
+    a kernel off this path). Returns the counts."""
     from siss_tpu_torch.ops import launch_counts, reset_launch_counts
-    from siss_tpu_torch.profile_step import MAIN_ACCUM, MAIN_MB, make_main_path
 
-    accum, mb = MAIN_ACCUM, MAIN_MB
-    state, step, batch, gen = make_main_path()
+    state, step, batch, gen = make()
     model = state.model
     n_params = sum(p.numel() for p in model.parameters())
     before = [p.detach().clone() for p in model.parameters()]
@@ -264,7 +520,7 @@ def phase_main_path(torch):
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     seconds, all_metrics = [], []
-    for i in range(4):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch, gen)
@@ -274,26 +530,46 @@ def phase_main_path(torch):
     counts = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated()
 
-    expected = {"siss_reduce": 4 * accum, "siss_bwd": 4 * 2 * accum}
+    expected = {k: steps * per_step.get(k, 0) for k in counts}
     if counts != expected:
-        raise AssertionError(f"launch counts {counts} over 4 steps, expected {expected}")
+        raise AssertionError(f"{name}: launch counts {counts} over {steps} steps, expected {expected}")
     for i, m in enumerate(all_metrics):
-        bad = {k: v for k, v in m.items() if v != v or v in (float("inf"), float("-inf"))}
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
         if bad:
-            raise AssertionError(f"step {i}: non-finite metrics {bad}")
+            raise AssertionError(f"{name} step {i}: non-finite metrics {bad}")
     moved = sum(float((p.detach() - b).abs().sum()) for p, b in zip(model.parameters(), before))
+    del before
     if not moved > 0:
-        raise AssertionError("the parameters did not move")
-    if state.step != 4 or state.ema.step != 4:
-        raise AssertionError(f"step counters {state.step}, {state.ema.step} != 4")
+        raise AssertionError(f"{name}: the parameters did not move")
+    if state.step != steps or (state.ema is not None and state.ema.step != steps):
+        raise AssertionError(f"{name}: step counters {state.step} != {steps}")
     timed = seconds[1:]
     med = statistics.median(timed)
-    print(f"main path celebahq_256 ({n_params} params) bs {mb} x accum {accum}: "
-          f"warm-up {seconds[0]:.3f} s, steps {[round(s, 4) for s in timed]} s, "
-          f"median {med:.4f} s = {accum * mb / med:.2f} img/s, "
-          f"peak memory {peak / 2**30:.2f} GiB, launches {counts}")
-    print("main path metrics (last step): " + json.dumps(all_metrics[-1], sort_keys=True))
+    print(f"main path {name} ({n_params} params): warm-up {seconds[0]:.3f} s, "
+          f"steps {[round(t, 4) for t in timed]} s, median {med:.4f} s = "
+          f"{images_per_step / med:.2f} img/s, peak memory {peak / 2**30:.2f} GiB, "
+          f"launches {counts}")
+    print(f"main path {name} metrics (last step): " + json.dumps(all_metrics[-1], sort_keys=True))
     return counts
+
+
+def phase_main_path(torch):
+    from siss_tpu_torch.profile_step import MAIN_ACCUM, MAIN_MB, make_main_path
+
+    return drive_path(torch, f"celebahq_256 bs {MAIN_MB} x accum {MAIN_ACCUM}", make_main_path,
+                      4, {"siss_reduce": MAIN_ACCUM, "siss_bwd": 2 * MAIN_ACCUM},
+                      MAIN_MB * MAIN_ACCUM)
+
+
+def phase_sd_path(torch):
+    from siss_tpu_torch.profile_step import SD_ACCUM, SD_MB, make_sd_path
+
+    # Per microbatch: 10 flash self-attention sites in the forward (5 at
+    # 64×64 latents, 5 at 32×32), each differentiated by both pulls.
+    per_step = {"flash_fwd": 10 * SD_ACCUM, "flash_bwd_dkv": 20 * SD_ACCUM,
+                "flash_bwd_dq": 20 * SD_ACCUM, "siss_reduce": SD_ACCUM, "siss_bwd": 2 * SD_ACCUM}
+    return drive_path(torch, f"sd_v1 flash bs {SD_MB} x accum {SD_ACCUM}", make_sd_path, 3,
+                      per_step, SD_MB * SD_ACCUM)
 
 
 def main() -> int:
@@ -326,11 +602,19 @@ def main() -> int:
             print("  " + line.strip())
 
     record = phase_kernels(torch)
+    record.update(phase_flash_kernels(torch))
     phase_tiny_step_parity(torch)
-    counts = phase_main_path(torch)
+    celeb_counts = phase_main_path(torch)
+    sd_counts = phase_sd_path(torch)
 
+    # Launches: the SISS kernels' from the celeb path, the flash kernels'
+    # from the SD path (the SISS kernels' SD counts are printed above).
+    counts = {**celeb_counts, **{k: sd_counts[k] for k in FLASH_OPS}}
     sources = {"siss_reduce": ("siss_tpu_torch/ops/csrc/siss_reduce.cu", "siss_tpu/ops/siss_pallas.py:55"),
-               "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120")}
+               "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120"),
+               "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
+               "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+               "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **record[name]) for name, (src, rep) in sources.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")

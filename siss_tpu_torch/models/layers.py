@@ -72,6 +72,15 @@ class ResnetBlock2D(nn.Module):
         return (h + residual) / self.output_scale_factor
 
 
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Materialised attention over [..., N, d]: fp32 logits and softmax,
+    then P cast to v's type before P·V, as the flax blocks do."""
+    with torch.autocast(q.device.type, enabled=False):
+        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        attn = torch.softmax(attn, dim=-1)
+    return torch.matmul(attn.to(v.dtype), v)
+
+
 class SpatialAttention(nn.Module):
     """Self-attention over the H×W grid (diffusers ``Attention`` inside
     Attn{Down,Up,Mid}Block2D). Logits and softmax are fp32, then cast to
@@ -98,11 +107,7 @@ class SpatialAttention(nn.Module):
             return a.reshape(B, H * W, self.num_heads, head_dim).transpose(1, 2)
 
         q, k, v = split(self.to_q(h)), split(self.to_k(h)), split(self.to_v(h))
-        scale = 1.0 / math.sqrt(head_dim)
-        with torch.autocast(x.device.type, enabled=False):
-            attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-            attn = torch.softmax(attn, dim=-1)
-        out = torch.matmul(attn.to(v.dtype), v)
+        out = attention_core(q, k, v, 1.0 / math.sqrt(head_dim))
         out = out.transpose(1, 2).reshape(B, H * W, C)
         out = self.to_out[0](out)
         out = out.reshape(B, H, W, C).permute(0, 3, 1, 2)

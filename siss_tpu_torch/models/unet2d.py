@@ -212,7 +212,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(noise / math.sqrt(fan_in))
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.GroupNorm):
+        elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     return model

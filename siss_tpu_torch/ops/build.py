@@ -21,10 +21,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "siss_tpu_torch_kernels"
-SOURCES = ("siss_reduce.cu", "siss_bwd.cu")
+SOURCES = ("siss_reduce.cu", "siss_bwd.cu", "flash_fwd.cu", "flash_bwd.cu")
 # --fmad=false: no multiply-add contraction, so each elementwise step rounds
-# as PyTorch's op-by-op plain versions do; the backward kernel then matches
-# its plain version bit for bit. The kernels are bound by memory, not flops.
+# as PyTorch's op-by-op plain versions do; the SISS backward kernel then
+# matches its plain version bit for bit. The flash kernels' products call
+# fmaf() explicitly, which the flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -97,5 +98,11 @@ def load() -> ctypes.CDLL:
         lib.siss_reduce.restype = i
         lib.siss_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, ll, i, i, p]
         lib.siss_bwd.restype = i
+        f, strides = ctypes.c_float, ctypes.POINTER(ll)
+        lib.flash_fwd.argtypes = [p] * 5 + [i] * 6 + [strides, f, p]
+        lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [strides, f, p]
+        lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [strides, f, p]
+        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+            fn.restype = i
         _lib = lib
     return _lib

@@ -1,0 +1,231 @@
+"""Flash attention: port of the JAX library's Pallas TPU flash-attention
+kernels (``jax/experimental/pallas/ops/tpu/flash_attention.py``), which the
+SD UNet runs at its ``attention_impl="flash"`` self-attention sites.
+
+O = softmax(Q Kᵀ·scale)·V over [B, H, N, d] operands, with fp32 logits and
+P cast to V's type before P·V, and its gradient. Three kernels, written in
+CUDA C++ for sm_90a, carry it on the card:
+
+- ``csrc/flash_fwd.cu``: O and the row log-sum-exp ``lse`` (the residual);
+- ``csrc/flash_bwd.cu``: dK and dV in one kernel, dQ in another, from q, k,
+  v, lse, dO and di = rowsum(O·dO).
+
+Each has a plain PyTorch version beside it (``flash_attention_plain``,
+``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``; ``flash_attention_bwd_plain``
+is the whole backward). The wrappers take the plain version only for
+tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+``launch_counts`` counts the launches.
+
+The kernels read their operands through strides, so q, k and v may be the
+[B, H, N, d] views of the projections' [B, N, H, d] outputs, and o and the
+gradients come back as such views: no transpose copies. Scope: non-causal
+self-attention, N a multiple of 128, d ≤ 128, fp32 or bf16.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: Kernel launches since the last ``reset_launch_counts()``, by kernel name.
+launch_counts = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Head dims the kernels are built for (FLASH_HEAD_DIMS in csrc/flash_common.cuh);
+# d is padded up to the next one.
+_HEAD_DIMS = (8, 16, 40, 64, 80, 128)
+# The sequence length must be a multiple of every block's row count.
+_SEQ_MULTIPLE = 128
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# --- plain PyTorch versions ------------------------------------------------
+
+def flash_attention_plain(q, k, v, scale):
+    """Plain version of the forward kernel: (o in q's type, fp32 lse [B, H, N])."""
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1).to(v.dtype).float()
+        o = torch.matmul(p, v.float()).to(q.dtype)
+    return o, lse
+
+
+def _probs(q, k, v, lse, do, di, scale):
+    """fp32 P and dS, as both backward kernels recompute them."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (dp - di[..., None]) * p * scale
+    return p, ds
+
+
+def flash_bwd_dkv_plain(q, k, v, lse, do, di, scale):
+    """Plain version of the dK/dV kernel: (dk, dv) in q's type."""
+    with torch.autocast(q.device.type, enabled=False):
+        p, ds = _probs(q, k, v, lse, do, di, scale)
+        dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+        dk = torch.matmul(ds.to(do.dtype).float().transpose(-1, -2), q.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, lse, do, di, scale):
+    """Plain version of the dQ kernel: dq in q's type."""
+    with torch.autocast(q.device.type, enabled=False):
+        _, ds = _probs(q, k, v, lse, do, di, scale)
+        dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def row_dot(o, do):
+    """di = rowsum(O·dO) in fp32, [B, H, N]: the backward's one input that
+    the TPU version also computes outside its kernels."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale):
+    """The whole backward, written out (no autograd): (dq, dk, dv)."""
+    di = row_dot(o, do)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)
+    return flash_bwd_dq_plain(q, k, v, lse, do, di, scale), dk, dv
+
+
+# --- kernel wrappers -------------------------------------------------------
+
+def padded_head_dim(d: int) -> int:
+    for D in _HEAD_DIMS:
+        if d <= D:
+            return D
+    raise ValueError(f"the flash-attention kernels take head_dim <= {_HEAD_DIMS[-1]}, got {d}")
+
+
+def _operands(*tensors):
+    """Check the [B, H, N, d] operands; give each a contiguous head dim."""
+    q = tensors[0]
+    if q.ndim != 4:
+        raise ValueError(f"flash attention takes [B, H, N, d] tensors, got shape {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the flash-attention kernels take float32 or bfloat16, got {q.dtype}")
+    for t in tensors:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("flash attention operands must share shape, dtype and device "
+                             "(self-attention only); got "
+                             f"{[(tuple(u.shape), u.dtype, str(u.device)) for u in tensors]}")
+    N, d = q.shape[2], q.shape[3]
+    if N % _SEQ_MULTIPLE:
+        raise ValueError(f"the flash-attention kernels need N % {_SEQ_MULTIPLE} == 0, got N={N}")
+    padded_head_dim(d)
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in tensors]
+
+
+def _empty_like_bnhd(q):
+    """An uninitialised [B, H, N, d] view of a contiguous [B, N, H, d] tensor."""
+    B, H, N, d = q.shape
+    return torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def _strides(*tensors):
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _f32_rows(t, shape, name):
+    if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous float32 {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    return t
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def flash_fwd(q, k, v, scale):
+    """(o, lse): o [B, H, N, d] in q's type, lse fp32 [B, H, N]."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, scale)
+    from siss_tpu_torch.ops.build import load
+
+    q, k, v = _operands(q, k, v)
+    B, H, N, d = q.shape
+    o = _empty_like_bnhd(q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    err = load().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           lse.data_ptr(), B, H, N, d, padded_head_dim(d), _DTYPE_CODES[q.dtype],
+                           _strides(q, k, v, o), float(scale),
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_fwd")
+    launch_counts["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dkv(q, k, v, lse, do, di, scale):
+    """(dk, dv), each [B, H, N, d] in q's type."""
+    if not q.is_cuda:
+        return flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)
+    from siss_tpu_torch.ops.build import load
+
+    q, k, v, do = _operands(q, k, v, do)
+    B, H, N, d = q.shape
+    lse, di = (_f32_rows(t, (B, H, N), n) for t, n in ((lse, "lse"), (di, "di")))
+    dk, dv = _empty_like_bnhd(q), _empty_like_bnhd(q)
+    err = load().flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                               do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                               B, H, N, d, padded_head_dim(d), _DTYPE_CODES[q.dtype],
+                               _strides(q, k, v, do, dk, dv), float(scale),
+                               torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_bwd_dkv")
+    launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, lse, do, di, scale):
+    """dq [B, H, N, d] in q's type."""
+    if not q.is_cuda:
+        return flash_bwd_dq_plain(q, k, v, lse, do, di, scale)
+    from siss_tpu_torch.ops.build import load
+
+    q, k, v, do = _operands(q, k, v, do)
+    B, H, N, d = q.shape
+    lse, di = (_f32_rows(t, (B, H, N), n) for t, n in ((lse, "lse"), (di, "di")))
+    dq = _empty_like_bnhd(q)
+    err = load().flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                              do.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                              B, H, N, d, padded_head_dim(d), _DTYPE_CODES[q.dtype],
+                              _strides(q, k, v, do, dq), float(scale),
+                              torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_bwd_dq")
+    launch_counts["flash_bwd_dq"] += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(Q Kᵀ·scale)·V with the flash kernels forward and backward.
+    Saves q, k, v, o and lse; the backward computes di, then dK/dV and dQ."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        di = row_dot(o, do)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, do, di, ctx.scale)
+        dq = flash_bwd_dq(q, k, v, lse, do, di, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale: float):
+    """Self-attention over [B, H, N, d] q, k, v (any strides with a
+    contiguous head dim): o [B, H, N, d] in q's type, differentiable."""
+    return FlashAttention.apply(q, k, v, float(scale))

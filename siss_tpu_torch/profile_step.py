@@ -1,17 +1,21 @@
-"""Where the flagship train step's device time goes, on one NVIDIA card.
+"""Where a SISS train step's device time goes, on one NVIDIA card.
 
-    python3 -m siss_tpu_torch.profile_step
+    python3 -m siss_tpu_torch.profile_step [--workload celeb|sd]
 
-Builds the flagship SISS deletion step (celebahq_256 UNet, microbatch 16 ×
-4 accumulation steps, fp32 params with bf16 autocast, AdamW, EMA, t ≡ 999)
-with random weights from a seed, runs one warm-up step, times three steps
-on the host clock, then traces one step with ``torch.profiler`` and prints
-the device time by kernel family and the device's busy share of the step.
-``chip_smoke.py`` drives the same step through ``make_main_path``.
+``celeb`` (the default) builds the flagship SISS deletion step (celebahq_256
+UNet, microbatch 16 × 4 accumulation steps, fp32 params with bf16 autocast,
+AdamW, EMA, t ≡ 999); ``sd`` the SD-1.x latent step of
+``configs/delete_sd.yaml`` (``make_sd_path``). Weights are random from a
+seed. The script runs one warm-up step, times three steps on the host
+clock, then traces one step with ``torch.profiler`` and prints the device
+time by kernel family and the device's busy share of the step.
+``chip_smoke.py`` drives the same steps through ``make_main_path`` and
+``make_sd_path``.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import time
 from collections import defaultdict
@@ -19,10 +23,12 @@ from collections import defaultdict
 import torch
 
 MAIN_ACCUM, MAIN_MB = 4, 16
+SD_ACCUM, SD_MB = 16, 1
 
 # Kernel-name fragments → family, first match wins.
 _FAMILIES = (
     ("siss::", "siss epilogue (this repo's CUDA kernels)"),
+    ("flash::", "flash attention (this repo's CUDA kernels)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),
     ("implicit", "convolution (cuDNN)"), ("wgrad", "convolution (cuDNN)"),
     ("dgrad", "convolution (cuDNN)"), ("fprop", "convolution (cuDNN)"),
@@ -56,6 +62,40 @@ def make_main_path(device="cuda"):
     return state, step, batch, gen
 
 
+def make_sd_path(device="cuda"):
+    """(state, step, batch, generator) of the SD-1.x latent SISS step on
+    ``device``, as ``bench.py --workload sd`` builds it (``build_sd``) with
+    ``configs/delete_sd.yaml``'s settings and ``--attention-impl flash``:
+    sd_v1 UNet with gradient checkpointing of the resnets only, bf16
+    autocast over fp32 params, AdamW(1e-5, betas (0.9, 0.999), wd 1e-2,
+    eps 1e-8), scaling_norm 750, λ 0.5, t ≡ 999, max_grad_norm 1, no EMA,
+    microbatch 1 × 16 accumulation steps of [64, 64, 4] latents, and one
+    77×768 prompt embedding shared by every microbatch."""
+    from siss_tpu_torch.diffusion import sd_noise_schedule
+    from siss_tpu_torch.models import UNet2DConditionConfig, build_unet_cond
+    from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
+                                      build_optimizer, cond_unet_eps_apply)
+
+    cfg = UNet2DConditionConfig.sd_v1(gradient_checkpointing=True, attention_impl="flash",
+                                      remat_attention=False)
+    model = build_unet_cond(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    opt, sched = build_optimizer({"_target_": "torch.optim.AdamW", "lr": 1e-5,
+                                  "betas": [0.9, 0.999], "weight_decay": 1e-2, "eps": 1e-8},
+                                 model.parameters())
+    state = TrainState.create(model, opt, sched)
+    step = build_deletion_train_step(
+        cond_unet_eps_apply, sd_noise_schedule(device=device),
+        DeletionStepConfig(loss_params=(("lambd", 0.5),), scaling_norm=750.0, max_grad_norm=1.0,
+                           grad_accum_steps=SD_ACCUM, t_min=999, t_max=1000))
+    gen = torch.Generator(device=device).manual_seed(0)
+    hw, ch = cfg.sample_size, cfg.in_channels
+    batch = {k: torch.randn(SD_ACCUM, SD_MB, hw, hw, ch, generator=gen, device=device)
+             for k in ("all", "deletion")}
+    prompt = torch.randn(77, cfg.cross_attention_dim, generator=gen, device=device)
+    batch["conditioning"] = prompt.expand(SD_ACCUM, SD_MB, *prompt.shape)
+    return state, step, batch, gen
+
+
 def _family(name: str) -> str:
     for frag, fam in _FAMILIES:
         if frag in name:
@@ -66,9 +106,12 @@ def _family(name: str) -> str:
 def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--workload", choices=("celeb", "sd"), default="celeb")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA card")
-    state, step, batch, gen = make_main_path()
+    state, step, batch, gen = (make_sd_path if args.workload == "sd" else make_main_path)()
     state, _ = step(state, batch, gen)
     torch.cuda.synchronize()
     seconds = []
@@ -77,7 +120,7 @@ def main() -> None:
         state, _ = step(state, batch, gen)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}, workload {args.workload}")
     print(f"step seconds {[round(s, 4) for s in seconds]}, median {statistics.median(seconds):.4f}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

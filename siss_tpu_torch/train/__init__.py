@@ -5,6 +5,7 @@ from siss_tpu_torch.train.step import (
     DeletionStepConfig,
     build_deletion_train_step,
     clip_by_global_norm,
+    cond_unet_eps_apply,
     global_norm,
     unet_eps_apply,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "DeletionStepConfig",
     "build_deletion_train_step",
     "clip_by_global_norm",
+    "cond_unet_eps_apply",
     "global_norm",
     "unet_eps_apply",
 ]

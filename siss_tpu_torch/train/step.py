@@ -49,6 +49,13 @@ def unet_eps_apply(model: torch.nn.Module, x: torch.Tensor, t: torch.Tensor, con
     return model(x.permute(0, 3, 1, 2), t).permute(0, 2, 3, 1)
 
 
+def cond_unet_eps_apply(model: torch.nn.Module, x: torch.Tensor, t: torch.Tensor,
+                        cond: torch.Tensor) -> torch.Tensor:
+    """``unet_eps_apply`` for a conditional UNet: ``cond`` [B, L, D] goes in
+    as its ``encoder_hidden_states``."""
+    return model(x.permute(0, 3, 1, 2), t, cond).permute(0, 2, 3, 1)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Global L2 norm of a list of tensors, accumulated in float32."""
     norms = torch._foreach_norm([t.float() for t in tensors])

@@ -3,17 +3,20 @@
 The input is the nested dict of numpy arrays a flax param tree becomes under
 ``jax.tree.map(np.asarray, params)``. The name rules are the port's own copy
 of the JAX package's exporter (``siss_tpu/utils/sd_convert.py`` and
-``siss_tpu/utils/export.py``), limited to what ``UNet2D`` uses: block paths
-expand (``down_blocks_0_resnets_1`` → ``down_blocks.0.resnets.1``),
-attention output projections become ``to_out.0``, and flax leaf names map to
-torch's. Kernels transpose from flax to torch layout: HWIO → OIHW for convs,
-IO → OI for linears.
+``siss_tpu/utils/export.py``), limited to what ``UNet2D`` and
+``UNet2DCondition`` use: block paths expand (``down_blocks_0_resnets_1`` →
+``down_blocks.0.resnets.1``, ``transformer_blocks_0`` →
+``transformer_blocks.0``), the GEGLU feed-forward's ``ff/geglu_proj`` and
+``ff/out_proj`` become ``ff.net.0.proj`` and ``ff.net.2``, attention output
+projections become ``to_out.0``, and flax leaf names map to torch's. Kernels
+transpose from flax to torch layout: HWIO → OIHW for convs, IO → OI for
+linears.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ from torch import nn
 _TOP_RE = re.compile(
     r"^(down_blocks|up_blocks)_(\d+)_(resnets|attentions|downsamplers|upsamplers)_(\d+)$")
 _MID_RE = re.compile(r"^mid_block_(resnets|attentions)_(\d+)$")
+_TRANSFORMER_RE = re.compile(r"^transformer_blocks_(\d+)$")
 _SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 
 
@@ -36,8 +40,32 @@ def _expand_block_names(parts: List[str]) -> List[str]:
         if m:
             out += ["mid_block", m.group(1), m.group(2)]
             continue
+        m = _TRANSFORMER_RE.match(p)
+        if m:
+            out += ["transformer_blocks", m.group(1)]
+            continue
         out.append(p)
     return out
+
+
+def _fix_ff(parts: List[str]) -> List[str]:
+    """ff/geglu_proj → ff.net.0.proj ; ff/out_proj → ff.net.2"""
+    for i, p in enumerate(parts[:-1]):
+        if p == "ff":
+            if parts[i + 1] == "geglu_proj":
+                return parts[:i] + ["ff", "net", "0", "proj"] + parts[i + 2:]
+            if parts[i + 1] == "out_proj":
+                return parts[:i] + ["ff", "net", "2"] + parts[i + 2:]
+    return parts
+
+
+def torch_key(names: Sequence[str]) -> str:
+    """The diffusers state-dict key of the flax param at path ``names``."""
+    names = _fix_ff([str(n) for n in names])
+    parts = _expand_block_names(names[:-1])
+    if parts and parts[-1] == "to_out":
+        parts.append("0")
+    return ".".join(parts + [_SUFFIX[names[-1]]])
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -53,10 +81,7 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax UNet param tree (numpy leaves) → diffusers-named torch state dict."""
     sd: Dict[str, torch.Tensor] = {}
     for names, leaf in _leaves(flax_params):
-        parts = _expand_block_names(list(names[:-1]))
-        if parts and parts[-1] == "to_out":
-            parts.append("0")
-        key = ".".join(parts + [_SUFFIX[names[-1]]])
+        key = torch_key(names)
         arr = np.asarray(leaf)
         if arr.dtype not in (np.float32, np.float16, np.float64):
             arr = arr.astype(np.float32)

@@ -1,0 +1,153 @@
+"""The port's flash attention (siss_tpu_torch.ops.flash_attention) against
+the JAX library's flash-attention reference, and the port's wiring rules.
+
+The Pallas TPU kernel itself runs only on a TPU (tests/test_flash_attention.py
+skips it elsewhere), and ``mha_reference``'s own custom backward raises for
+sm_scale ≠ 1, so the JAX side here is ``mha_reference_no_custom_vjp`` and
+its ``jax.vjp``. On the CPU the port's wrappers run the kernels' plain
+versions; the CUDA kernels are held against those on the card by
+chip_smoke.py. Tolerances, fp32: outputs atol 2e-6 and lse 2e-6 relative
+(sums of N ≤ 256 terms of O(1) in another order), gradients atol 1e-5
+(their sums run over N terms of products of O(1) values and of the softmax
+weights, both orders differing).
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference_no_custom_vjp
+
+import torch_parity  # noqa: F401  (torch threads, no TF32)
+from siss_tpu_torch import ops
+from siss_tpu_torch.ops import flash_attention as fa
+from siss_tpu_torch.ops import siss
+from siss_tpu_torch.models.unet2d_cond import CrossAttention
+
+SHAPES = [(N, d) for N in (128, 256) for d in (8, 40, 80)]
+B, H = 2, 3
+
+
+def inputs(N, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(4)]
+
+
+def bnhd_view(x):
+    """The [B, H, N, d] view of a contiguous [B, N, H, d] copy: the layout
+    the UNet hands the kernels."""
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).transpose(1, 2)
+
+
+@pytest.mark.parametrize("N,d", SHAPES)
+def test_plain_forward_matches_jax(N, d):
+    q, k, v, _ = inputs(N, d)
+    scale = 1.0 / math.sqrt(d)
+    want, l, m = mha_reference_no_custom_vjp(*map(jnp.asarray, (q, k, v)), sm_scale=scale,
+                                             save_residuals=True)
+    o, lse = fa.flash_attention_plain(*map(bnhd_view, (q, k, v)), scale)
+    assert o.dtype == torch.float32 and lse.shape == (B, H, N)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(m + jnp.log(l)), rtol=2e-6, atol=0)
+
+
+@pytest.mark.parametrize("N,d", SHAPES)
+def test_plain_backward_matches_jax_vjp(N, d):
+    q, k, v, do = inputs(N, d, seed=1)
+    scale = 1.0 / math.sqrt(d)
+    out, vjp = jax.vjp(lambda *a: mha_reference_no_custom_vjp(*a, sm_scale=scale),
+                       *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(bnhd_view, (q, k, v, do))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, scale)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_autograd_function_uses_the_explicit_backward():
+    """flash_attention's gradient is the written-out backward, bit for bit,
+    and equals autograd through the plain forward to fp32 rounding."""
+    q, k, v, do = inputs(128, 40, seed=2)
+    scale = 1.0 / math.sqrt(40)
+    tq, tk, tv = (bnhd_view(x).requires_grad_(True) for x in (q, k, v))
+    tdo = bnhd_view(do)
+    o = fa.flash_attention(tq, tk, tv, scale)
+    got = torch.autograd.grad(o, (tq, tk, tv), tdo)
+    o_p, lse = fa.flash_attention_plain(tq, tk, tv, scale)
+    want = fa.flash_attention_bwd_plain(tq, tk, tv, o_p, lse, tdo, scale)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    ref = torch.softmax(tq @ tk.transpose(-1, -2) * scale, dim=-1) @ tv
+    for g, w in zip(got, torch.autograd.grad(ref, (tq, tk, tv), tdo)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+
+def test_plain_bf16_casts_p_to_v_dtype():
+    """bf16 operands: logits and softmax in fp32, P rounded to bf16 before
+    P·V, output in bf16 (the TPU kernel's casts)."""
+    q, k, v, _ = inputs(128, 16, seed=3)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, 0.25)
+    s = (tq.float() @ tk.float().transpose(-1, -2)) * 0.25
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(o, (p @ tv.float()).to(torch.bfloat16))
+
+
+def test_ops_launch_counts_cover_every_kernel():
+    """ops.launch_counts reads every kernel module's counts; one reset clears all."""
+    fa.launch_counts["flash_bwd_dq"] += 2
+    siss.launch_counts["siss_bwd"] += 1
+    assert set(ops.launch_counts) == {"siss_reduce", "siss_bwd", "flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq"}
+    assert ops.launch_counts["flash_bwd_dq"] >= 2 and ops.launch_counts["siss_bwd"] >= 1
+    ops.reset_launch_counts()
+    assert dict(ops.launch_counts) == dict.fromkeys(ops.launch_counts, 0)
+    assert fa.launch_counts["flash_bwd_dq"] == 0 and siss.launch_counts["siss_bwd"] == 0
+
+
+@pytest.mark.parametrize("d,D", [(8, 8), (16, 16), (24, 40), (40, 40), (64, 64), (72, 80),
+                                 (80, 80), (128, 128)])
+def test_padded_head_dim(d, D):
+    assert fa.padded_head_dim(d) == D
+
+
+@pytest.mark.parametrize("shape,match", [((1, 2, 200, 40), "N % 128"),
+                                         ((1, 2, 128, 136), "head_dim <= 128"),
+                                         ((2, 128, 40), r"\[B, H, N, d\]")])
+def test_kernel_operands_are_checked(shape, match):
+    """What the kernels cannot take raises before any launch."""
+    x = torch.zeros(shape)
+    with pytest.raises(ValueError, match=match):
+        fa._operands(x, x, x)
+
+
+def test_kernel_operands_keep_strided_views():
+    x = torch.zeros(1, 256, 2, 40).transpose(1, 2)
+    assert fa._operands(x, x, x)[0] is x
+    with pytest.raises(ValueError, match="share shape"):
+        fa._operands(x, x.double(), x)
+
+
+def test_flash_wiring_rules():
+    """The port of tests/test_flash_attention.py::test_flash_wiring_rules:
+    flash only on self-attention with 128-divisible N and head_dim ≤ 128;
+    auto never picks flash off a TPU, which the port always is."""
+    att = CrossAttention(320, 8, 40, impl="flash")
+    assert att._use_flash(is_self=True, n_q=4096)
+    assert att._use_flash(is_self=True, n_q=128)
+    assert not att._use_flash(is_self=False, n_q=4096)
+    assert not att._use_flash(is_self=True, n_q=77)
+    assert not CrossAttention(2048, 8, 160, impl="flash")._use_flash(True, 4096)
+    assert not CrossAttention(320, 8, 40, impl="einsum")._use_flash(True, 4096)
+    assert not CrossAttention(320, 8, 40, impl="einsum_remat")._use_flash(True, 4096)
+    assert not CrossAttention(320, 8, 40, impl="auto")._use_flash(True, 4096)
+    assert not CrossAttention(640, 8, 80, impl="auto")._use_flash(True, 4096)
+    assert not CrossAttention(1024, 8, 128, impl="auto")._use_flash(True, 4096)
+    with pytest.raises(ValueError, match="Unknown attention impl"):
+        CrossAttention(320, 8, 40, impl="typo")._use_flash(True, 4096)

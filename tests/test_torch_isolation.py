@@ -26,7 +26,9 @@ def _run(args, cwd, timeout=120):
 def test_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(siss_tpu_torch.__path__, "siss_tpu_torch.")]
     assert {"siss_tpu_torch.ops.siss", "siss_tpu_torch.ops.build", "siss_tpu_torch.train.step",
-            "siss_tpu_torch.models.unet2d", "siss_tpu_torch.utils.convert"} <= set(mods)
+            "siss_tpu_torch.models.unet2d", "siss_tpu_torch.utils.convert",
+            "siss_tpu_torch.ops.flash_attention", "siss_tpu_torch.models.unet2d_cond",
+            "siss_tpu_torch.diffusion.sd_pipeline", "siss_tpu_torch.profile_step"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -36,16 +38,21 @@ def test_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("entry", ["schedule", "unet"])
+@pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    from siss_tpu_torch.diffusion import NoiseSchedule
-    from siss_tpu_torch.models import UNet2DConfig, build_unet
+    from siss_tpu_torch.diffusion import NoiseSchedule, sd_noise_schedule
+    from siss_tpu_torch.models import (UNet2DConditionConfig, UNet2DConfig, build_unet,
+                                       build_unet_cond)
 
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "schedule":
             NoiseSchedule.create(1000)
+        elif entry == "sd_schedule":
+            sd_noise_schedule()
+        elif entry == "unet_cond":
+            build_unet_cond(UNet2DConditionConfig.tiny())
         else:
             build_unet(UNet2DConfig(block_out_channels=(16, 32), norm_num_groups=8,
                                     down_block_types=("DownBlock2D", "DownBlock2D"),
