@@ -7,7 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. The card: its name and power limit as nvidia-smi reports them.
-2. Build the CUDA kernels from ``siss_tpu_torch/ops/csrc`` (nvcc, sm_90a).
+2. Build the CUDA kernels from ``siss_tpu_torch/ops/csrc`` (nvcc, sm_90a),
+   and show from the library's SASS (cuobjdump) that every bf16 tensor-core
+   flash kernel (``flash::sm90::``) runs HGMMA, Hopper's wgmma.
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
@@ -19,13 +21,17 @@ prints no result):
 4. Hold the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card: o, lse, dq, dk and dv at the SD
    shapes (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) and at
-   (2, 4, 256, 8), (1, 2, 128, 128) and (1, 2, 128, 24) (d padded to 40),
-   each in fp32 and bf16, with the operands in the UNet's strided
-   [B, N, H, d] layout: every element within its bound, and in bf16 the
-   RMS error within its bound too. lse must repeat bit for bit; the
-   autograd.Function must give the kernels' gradients; a shape the kernels
-   cannot take must raise. Then time kernel, plain version and PyTorch's
-   scaled_dot_product_attention at the SD shapes.
+   (2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24) (d padded to 40),
+   (4, 12, 384, 40) (three 128-row tiles, two consumer warpgroups) and
+   (2, 3, 256, 40), each in fp32 and bf16, with the operands in the UNet's
+   strided [B, N, H, d] layout, and (2, 3, 256, 40) once more with
+   contiguous [B, H, N, d] operands: every element within its bound, and
+   in bf16 the RMS error within its bound too. Each case prints which
+   kernel ran for each (kernel, type): ``wgmma`` or ``fma``. lse and o must
+   repeat bit for bit; the autograd.Function must give the kernels'
+   gradients; a shape the kernels cannot take, and a bf16 operand that
+   breaks TMA's 16-byte rule, must raise. Then time kernel, plain version
+   and PyTorch's scaled_dot_product_attention at the SD shapes.
 5. One fused SISS train step of a tiny UNet on the card against the same
    step on the CPU (plain versions), from the same weights and draws; then
    the same for the SD latent step of a tiny conditional UNet whose level-0
@@ -61,6 +67,9 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, H100 SXM data sheet
+# Exponentials per second: 16 a clock per SM (the SFUs) on 132 SMs at the
+# 1.98 GHz boost clock. A floor beside the bound for softmax at small d.
+H100_EXP_PER_S = 16 * 132 * 1.98e9
 REDUCE_FLOPS_PER_ELEM = 14     # 2 residuals (mul+sub), 2 eps (mul+sub), 4 squares+adds
 BWD_FLOPS_PER_ELEM = 11        # 2 residuals, 2 eps, 2 weights, 1 add
 # The SISS kernels' operands on the SD step: one [64, 64, 4] latent per microbatch.
@@ -68,7 +77,8 @@ SISS_SD_SHAPE = (1, 64, 64, 4)
 # (B, H, N, d): the SD UNet's flash sites (64×64 and 32×32 latents), then
 # a small head dim, the largest one, and one padded to a built head dim.
 FLASH_SD_SHAPES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
-FLASH_SHAPES = FLASH_SD_SHAPES + ((2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24))
+FLASH_SHAPES = FLASH_SD_SHAPES + ((2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24),
+                                  (4, 12, 384, 40), (2, 3, 256, 40))
 # Matrix-product operations per B·H·N²·d of each flash kernel (2 per
 # multiply-add): the forward's S and P·V; dK/dV recomputes S and dP and
 # forms dV and dK; dQ recomputes S and dP and forms dQ.
@@ -290,18 +300,22 @@ def flash_rms_bound(ref, quad):
     return 2 * 2.0 ** -8 * (rms(quad) + rms(ref))
 
 
-def check_flash_case(torch, shape, dtype, seed):
-    """Kernels against plain versions on one input set; max abs errors."""
+def check_flash_case(torch, shape, dtype, seed, contiguous=False):
+    """Kernels against plain versions on one input set; max abs errors.
+    The operands are [B, H, N, d] views of [B, N, H, d] tensors, the UNet's
+    layout, or with ``contiguous`` contiguous [B, H, N, d] tensors."""
     from siss_tpu_torch.ops import flash_attention as fa
     from siss_tpu_torch.ops import launch_counts
 
     B, H, N, d = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    # The UNet's layout: [B, H, N, d] views of [B, N, H, d] projections.
-    q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-                   for _ in range(4))
+    if contiguous:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    else:
+        q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda").to(dtype)
+                       .transpose(1, 2) for _ in range(4))
     scale = 1.0 / math.sqrt(d)
-    name = f"{list(shape)} {str(dtype)[6:]}"
+    name = f"{list(shape)} {str(dtype)[6:]}{' contiguous' if contiguous else ''}"
     before = dict(launch_counts)
     o, lse = fa.flash_fwd(q, k, v, scale)
     o2, lse2 = fa.flash_fwd(q, k, v, scale)
@@ -314,6 +328,7 @@ def check_flash_case(torch, shape, dtype, seed):
         raise AssertionError(f"flash {name}: the wrappers did not launch the kernels: {launched}")
     if not (torch.equal(lse, lse2) and torch.equal(o, o2)):
         raise AssertionError(f"flash {name}: the forward kernel did not repeat bit for bit")
+    impls = {key: fa.kernel_impl(key, dtype) for key in FLASH_OPS}
 
     o_p, lse_p = fa.flash_attention_plain(q, k, v, scale)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)
@@ -357,7 +372,8 @@ def check_flash_case(torch, shape, dtype, seed):
     for label, got, want in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
         if not torch.equal(got, want):
             raise AssertionError(f"flash {name}: FlashAttention's {label} is not the kernels'")
-    print(f"flash check {name}: ok  " + "  ".join(f"{k} max_abs_err={e:.3e}" for k, e in errs.items())
+    print(f"flash check {name}: ok  " + "  ".join(f"{k} ({impls[k]}) max_abs_err={e:.3e}"
+                                                  for k, e in errs.items())
           + (f"  RMS err / bound: {', '.join(rms_ratios)}" if rms_ratios else ""))
     return errs
 
@@ -371,16 +387,27 @@ def phase_flash_kernels(torch):
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             errs[shape, dtype] = check_flash_case(torch, shape, dtype, seed=len(errs))
-    # On a CUDA tensor the wrapper launches its kernel or raises.
-    for shape, match in (((1, 2, 200, 40), "N %"), ((1, 2, 128, 136), "head_dim")):
-        x = torch.zeros((shape[0], shape[2], shape[1], shape[3]), device="cuda").transpose(1, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash_case(torch, (2, 3, 256, 40), dtype, seed=len(errs) + 1, contiguous=True)
+    # On a CUDA tensor the wrapper launches its kernel or raises: shapes the
+    # kernels cannot take, and bf16 operands that break TMA's 16-byte rule
+    # (a view one element off an aligned base; a head dim of 12).
+    flat = torch.zeros(1 * 128 * 2 * 40 + 1, dtype=torch.bfloat16, device="cuda")
+    for shape, dtype, offset, match in (((1, 2, 200, 40), torch.float32, 0, "N %"),
+                                        ((1, 2, 128, 136), torch.float32, 0, "head_dim"),
+                                        ((1, 2, 128, 40), torch.bfloat16, 1, "16 bytes"),
+                                        ((1, 2, 128, 12), torch.bfloat16, 0, "head_dim % 8")):
+        B, H, N, d = shape
+        x = (torch.zeros((B, N, H, d), dtype=dtype, device="cuda") if not offset
+             else flat[offset:offset + B * N * H * d].view(B, N, H, d)).transpose(1, 2)
         try:
             fa.flash_fwd(x, x, x, 0.1)
         except ValueError as e:
             if match not in str(e):
                 raise
         else:
-            raise AssertionError(f"flash_fwd took an unsupported shape {shape} on the card")
+            raise AssertionError(f"flash_fwd took an unsupported {dtype} operand {shape} "
+                                 f"(offset {offset}) on the card")
 
     # Timing at the SD shapes in bf16 (the main path's type), in turns:
     # plain, kernel, kernel, plain; then SDPA's forward and forward+backward.
@@ -416,14 +443,18 @@ def phase_flash_kernels(torch):
             p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
             t_bytes = nbytes[name] / H100_BYTES_PER_S * 1e3
             t_ops = FLASH_OPS[name] * bhn2d / H100_BF16_FLOPS * 1e3
-            rec = dict(max_abs_err=errs[shape, torch.bfloat16][name],
+            rec = dict(impl=fa.kernel_impl(name, torch.bfloat16),
+                       max_abs_err=errs[shape, torch.bfloat16][name],
                        ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        library_ms=sdpa_fwd if name == "flash_fwd" else sdpa_all - sdpa_fwd)
             this[name] = rec
-            print(f"kernel time {name} {list(shape)} bf16: {rec['ms']:.4f} ms  plain "
-                  f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
+            # Every kernel evaluates exp once per (query, key) pair.
+            exp_floor = B * H * N * N / H100_EXP_PER_S * 1e3
+            print(f"kernel time {name} ({rec['impl']}) {list(shape)} bf16: {rec['ms']:.4f} ms  "
+                  f"plain {rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']})  exp floor {exp_floor:.4f} ms  "
                   f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd (fwd+bwd − fwd)'} "
                   f"{rec['library_ms']:.4f} ms")
         print(f"  whole backward {list(shape)} bf16: kernels "
@@ -433,6 +464,32 @@ def phase_flash_kernels(torch):
         # The JSON record holds the 64×64-latent sites, the step's heaviest.
         record = record or this
     return record
+
+
+def check_tensor_core_sass(lib_path):
+    """Count HGMMA (wgmma) instructions per kernel in the built library's
+    SASS and print them for the bf16 tensor-core flash kernels; raise if
+    one has none."""
+    from siss_tpu_torch.ops import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, first, fn = {}, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+            first.setdefault(fn, " ".join(line.split("*/")[1].split()) if "*/" in line else line)
+    sm90 = {f: n for f, n in counts.items() if "sm90" in f}
+    if not sm90 or not all(sm90.values()):
+        raise AssertionError(f"tensor-core flash kernels without HGMMA in their SASS: {sm90}")
+    for f, n in sm90.items():
+        print(f"  SASS {f}: {n} HGMMA, e.g. {first[f]}")
+    others = sum(n for f, n in counts.items() if "sm90" not in f)
+    print(f"  SASS: {others} HGMMA in the other {len(counts) - len(sm90)} kernels")
 
 
 def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, shape, cond=None):
@@ -598,8 +655,9 @@ def main() -> int:
     info = build.build_info
     print(f"kernels built in {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line or "C75" in line:
             print("  " + line.strip())
+    check_tensor_core_sass(info["path"])
 
     record = phase_kernels(torch)
     record.update(phase_flash_kernels(torch))
@@ -612,8 +670,8 @@ def main() -> int:
     counts = {**celeb_counts, **{k: sd_counts[k] for k in FLASH_OPS}}
     sources = {"siss_reduce": ("siss_tpu_torch/ops/csrc/siss_reduce.cu", "siss_tpu/ops/siss_pallas.py:55"),
                "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120"),
-               "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
-               "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+               "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
+               "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
                "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **record[name]) for name, (src, rep) in sources.items()]

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "siss_tpu_torch_kernels"
-SOURCES = ("siss_reduce.cu", "siss_bwd.cu", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("siss_reduce.cu", "siss_bwd.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
+           "flash_bwd_dkv_sm90.cu")
 # --fmad=false: no multiply-add contraction, so each elementwise step rounds
 # as PyTorch's op-by-op plain versions do; the SISS backward kernel then
 # matches its plain version bit for bit. The flash kernels' products call
@@ -31,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 #: What the last build did: seconds it took (0.0 when the library was
-#: already built) and nvcc's output, including ptxas' register report.
-build_info = {"seconds": None, "log": ""}
+#: already built), nvcc's output, including ptxas' register report, and the
+#: library's path.
+build_info = {"seconds": None, "log": "", "path": None}
 
 
 def _nvcc() -> str:
@@ -71,7 +73,7 @@ def build() -> Path:
     """Compile the kernels if this version of the sources is not built yet."""
     lib_path = BUILD_DIR / f"libsiss_tpu_torch_kernels-{_digest()}.so"
     if lib_path.exists():
-        build_info.update(seconds=0.0, log="")
+        build_info.update(seconds=0.0, log="", path=lib_path)
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -84,7 +86,7 @@ def build() -> Path:
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     for o in objs:
         o.unlink()
-    build_info.update(seconds=time.perf_counter() - t0, log=log)
+    build_info.update(seconds=time.perf_counter() - t0, log=log, path=lib_path)
     return lib_path
 
 

@@ -14,12 +14,17 @@
 // kernels do before their second product; sums are fp32, outputs in the
 // operands' type.
 //
+// flash_bwd_dkv dispatches on the operands' type: bf16 runs the
+// tensor-core kernel of flash_bwd_dkv_sm90.cu, fp32 the FMA dK/dV kernel
+// below (tensor cores would mean TF32). dQ runs the FMA kernel below in
+// both types.
+//
 // Bound on an H100 SXM: by operations. dK/dV does 8 B H N^2 d of them (s,
 // dv, dp, dk) and dQ 6 B H N^2 d (s, dp, dq): at (1, 8, 4096, 40) in bf16
 // that is 43.4 us and 32.6 us at 989 TFLOP/s. The whole backward needs
 // only 10 B H N^2 d (54.3 us) when one kernel produces all three
 // gradients; splitting it, as the TPU version does, recomputes s and dp.
-// This first version runs on fp32 FMAs (67 TFLOP/s).
+// The FMA kernels run on fp32 FMAs (67 TFLOP/s).
 //
 // Design (flash_common.cuh): dK/dV gives each key row its k, v, dk and dv
 // in registers and streams q, dO, lse and di through shared memory; dQ
@@ -191,7 +196,8 @@ int launch_dq(const void* q, const void* k, const void* v, const float* lse, con
 
 // q, k, v, dout, dk, dv: [B, H, N, d] operands with element strides in
 // strides[0..17] (in that order; each batch, head, sequence). lse, di: fp32
-// [B, H, N], contiguous. D, N and dtype as for flash_fwd.
+// [B, H, N], contiguous. D, N and dtype as for flash_fwd: fp32 runs the
+// FMA kernel, bf16 the tensor-core kernel.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* lse,
                              const void* dout, const void* di, void* dk, void* dv, int B, int H,
                              int N, int d, int D, int dtype, const long long* strides,
@@ -203,12 +209,12 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   if (dtype == 0)
     return launch_dkv<float>(q, k, v, l, dout, t, dk, dv, B, H, N, d, D, strides, scale, s);
   if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, l, dout, t, dk, dv, B, H, N, d, D, strides, scale,
-                                     s);
+    return launch_dkv_bf16_sm90(q, k, v, l, dout, t, dk, dv, B, H, N, d, D, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dkv, with q, k, v, dout, dq in strides[0..14].
+// As flash_bwd_dkv, with q, k, v, dout, dq in strides[0..14]; the FMA
+// kernel in both types.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* lse,
                             const void* dout, const void* di, void* dq, int B, int H, int N,
                             int d, int D, int dtype, const long long* strides, float scale,

@@ -1,19 +1,21 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// and the bf16 tensor-core kernels of flash_fwd_sm90.cu and
+// flash_bwd_dkv_sm90.cu, whose own pieces are in flash_sm90.cuh).
 //
 // Every operand is a [B, H, N, d] tensor given by its element strides, with
 // the head dimension contiguous, so the kernels read q, k and v straight
 // from the [B, N, H, d] outputs of the to_q/to_k/to_v projections and write
-// o, dq, dk and dv in that layout too. Inputs are fp32 or bf16; all
-// arithmetic is fp32.
+// o, dq, dk and dv in that layout too. All arithmetic is fp32.
 //
-// Work split: each block owns ROWS rows of one (batch, head) of the "row"
-// operand (queries for the forward and dQ, keys for dK/dV) and streams the
-// other operand through shared memory in tiles of kTile rows, converted to
-// fp32 once per tile. A row's head dimension is split over TPR neighbouring
-// lanes, DH columns each, so a row's accumulators stay in registers at
-// every head dim up to 128; a dot product over the head dimension is summed
-// across those lanes with shuffles. All lanes of a block read the same tile
-// row at once, so the shared-memory reads are broadcasts.
+// The FMA kernels below run the fp32 forward and dK/dV and the dQ of both
+// types. Work split: each block owns ROWS rows of one (batch, head) of the
+// "row" operand (queries for the forward and dQ, keys for dK/dV) and streams
+// the other operand through shared memory in tiles of kTile rows, converted
+// to fp32 once per tile. A row's head dimension is split over TPR
+// neighbouring lanes, DH columns each, so a row's accumulators stay in
+// registers at every head dim up to 128; a dot product over the head
+// dimension is summed across those lanes with shuffles. All lanes of a block
+// read the same tile row at once, so the shared-memory reads are broadcasts.
 //
 // The head dimension d is padded to D, one of 8, 16, 40, 64, 80, 128: the
 // padded columns are zero in shared memory and registers and are
@@ -135,6 +137,16 @@ __device__ __forceinline__ void axpy(float (&acc)[DH], float w, const float* __r
 inline Strides strides_at(const long long* s, int i) {
   return {s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
+
+// The bf16 kernels on Hopper's tensor cores, with the arguments of
+// flash_fwd and flash_bwd_dkv (bf16 operands; lse and di fp32).
+int launch_fwd_bf16_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                         int H, int N, int d, int D, const long long* strides, float scale,
+                         cudaStream_t stream);
+int launch_dkv_bf16_sm90(const void* q, const void* k, const void* v, const float* lse,
+                         const void* dout, const float* di, void* dk, void* dv, int B, int H,
+                         int N, int d, int D, const long long* strides, float scale,
+                         cudaStream_t stream);
 
 }  // namespace flash
 

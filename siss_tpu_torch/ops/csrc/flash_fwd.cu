@@ -10,11 +10,14 @@
 // accumulator, O in Q's type. The TPU kernel keeps l and m as residuals;
 // this one keeps lse, which is all the backward needs.
 //
+// flash_fwd dispatches on the operands' type: bf16 runs the tensor-core
+// kernel of flash_fwd_sm90.cu; fp32 runs the FMA kernel below, which keeps
+// fp32 products (tensor cores would mean TF32) and so matches the fp32
+// plain version to fp32 rounding.
+//
 // Bound on an H100 SXM: 4 B H N^2 d operations against a few MB of
-// operands, so it is bound by operations. At (B, H, N, d) = (1, 8, 4096, 40)
-// in bf16 that is 21.5 GFLOP, 21.7 us at the tensor cores' 989 TFLOP/s.
-// This first version does the products on fp32 FMAs (67 TFLOP/s, so at
-// least 320 us there); the tensor-core version (mma/wgmma) is later work.
+// operands, so it is bound by operations; in fp32 outside the tensor cores
+// (67 TFLOP/s) that is 320 us at (B, H, N, d) = (1, 8, 4096, 40).
 //
 // Design: one block per 128/TPR query rows of one (batch, head); each row
 // keeps q and its output accumulator in registers, split over TPR lanes
@@ -114,8 +117,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o: [B, H, N, d] operands with the element strides in
 // strides[0..11] (q, k, v, o; each batch, head, sequence). lse: fp32
 // [B, H, N], contiguous. D: d padded up to a built head dim. N must be a
-// multiple of 128 (checked by the caller). dtype: 0 = fp32, 1 = bf16.
-// Returns cudaGetLastError().
+// multiple of 128 (checked by the caller). dtype: 0 = fp32 (FMA kernel),
+// 1 = bf16 (tensor-core kernel). Returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                          int H, int N, int d, int D, int dtype, const long long* strides,
                          float scale, void* stream) {
@@ -123,7 +126,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd<float>(q, k, v, o, l, B, H, N, d, D, strides, scale, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, o, l, B, H, N, d, D, strides, scale, s);
+  if (dtype == 1) return launch_fwd_bf16_sm90(q, k, v, o, l, B, H, N, d, D, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,15 @@ O = softmax(Q Kᵀ·scale)·V over [B, H, N, d] operands, with fp32 logits and
 P cast to V's type before P·V, and its gradient. Three kernels, written in
 CUDA C++ for sm_90a, carry it on the card:
 
-- ``csrc/flash_fwd.cu``: O and the row log-sum-exp ``lse`` (the residual);
-- ``csrc/flash_bwd.cu``: dK and dV in one kernel, dQ in another, from q, k,
-  v, lse, dO and di = rowsum(O·dO).
+- ``flash_fwd``: O and the row log-sum-exp ``lse`` (the residual);
+- ``flash_bwd_dkv`` and ``flash_bwd_dq``: dK and dV in one kernel, dQ in
+  another, from q, k, v, lse, dO and di = rowsum(O·dO).
+
+Each C entry point dispatches on the operands' type (``kernel_impl``): bf16
+forward and dK/dV run on the tensor cores (``wgmma``, with TMA tile copies:
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``); fp32, and dQ
+in both types, run on fp32 FMAs (``fma``: ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), since tensor cores would round fp32 to TF32.
 
 Each has a plain PyTorch version beside it (``flash_attention_plain``,
 ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``; ``flash_attention_bwd_plain``
@@ -19,7 +25,10 @@ tensors on the CPU; for CUDA tensors they launch the kernel or raise.
 The kernels read their operands through strides, so q, k and v may be the
 [B, H, N, d] views of the projections' [B, N, H, d] outputs, and o and the
 gradients come back as such views: no transpose copies. Scope: non-causal
-self-attention, N a multiple of 128, d ≤ 128, fp32 or bf16.
+self-attention, N a multiple of 128, d ≤ 128, fp32 or bf16. The bf16
+tensor-core kernels copy tiles with TMA in 16-byte column groups, so in
+bf16 d must be a multiple of 8 and each operand's base address and batch,
+head and sequence strides multiples of 16 bytes.
 """
 
 from __future__ import annotations
@@ -37,6 +46,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 40, 64, 80, 128)
 # The sequence length must be a multiple of every block's row count.
 _SEQ_MULTIPLE = 128
+# What each C entry point runs for each operand type.
+_IMPLS = {"flash_fwd": {torch.float32: "fma", torch.bfloat16: "wgmma"},
+          "flash_bwd_dkv": {torch.float32: "fma", torch.bfloat16: "wgmma"},
+          "flash_bwd_dq": {torch.float32: "fma", torch.bfloat16: "fma"}}
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +117,30 @@ def padded_head_dim(d: int) -> int:
     raise ValueError(f"the flash-attention kernels take head_dim <= {_HEAD_DIMS[-1]}, got {d}")
 
 
+def kernel_impl(name: str, dtype: torch.dtype) -> str:
+    """Which kernel the C entry point ``name`` launches for ``dtype``
+    operands: "wgmma" (bf16 tensor cores) or "fma" (fp32 FMAs)."""
+    return _IMPLS[name][dtype]
+
+
+def _check_tma_alignment(tensors):
+    """The bf16 tensor-core kernels copy [B, H, N, d] tiles with TMA in
+    16-byte column groups: d must be a multiple of 8, and the base address and
+    the batch, head and sequence strides multiples of 16 bytes."""
+    d = tensors[0].shape[3]
+    if d % 8:
+        raise ValueError(f"the bf16 flash-attention kernels need head_dim % 8 == 0 "
+                         f"(16-byte column groups), got {d}")
+    for t in tensors:
+        size = t.element_size()
+        strides = [s * size for s in t.stride()[:3]]
+        if t.data_ptr() % 16 or any(s % 16 for s in strides):
+            raise ValueError("the bf16 flash-attention kernels copy tiles with TMA, which needs a "
+                             "16-byte aligned base address and batch, head and sequence strides "
+                             f"that are multiples of 16 bytes; got base address % 16 = "
+                             f"{t.data_ptr() % 16} and strides {strides} bytes")
+
+
 def _operands(*tensors):
     """Check the [B, H, N, d] operands; give each a contiguous head dim."""
     q = tensors[0]
@@ -120,7 +157,10 @@ def _operands(*tensors):
     if N % _SEQ_MULTIPLE:
         raise ValueError(f"the flash-attention kernels need N % {_SEQ_MULTIPLE} == 0, got N={N}")
     padded_head_dim(d)
-    return [t if t.stride(-1) == 1 else t.contiguous() for t in tensors]
+    tensors = [t if t.stride(-1) == 1 else t.contiguous() for t in tensors]
+    if q.dtype == torch.bfloat16:
+        _check_tma_alignment(tensors)
+    return tensors
 
 
 def _empty_like_bnhd(q):
@@ -135,9 +175,11 @@ def _strides(*tensors):
 
 
 def _f32_rows(t, shape, name):
-    if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous float32 {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
+    """lse or di: contiguous fp32 [B, H, N], 16-byte aligned (the bf16 dK/dV
+    kernel copies its rows with bulk copies)."""
+    if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous, 16-byte aligned float32 {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)} at address % 16 = {t.data_ptr() % 16}")
     return t
 
 

@@ -134,6 +134,60 @@ def test_kernel_operands_keep_strided_views():
         fa._operands(x, x.double(), x)
 
 
+def _bf16_view(B, H, N, d, offset=0, width=None):
+    """A [B, H, N, d] bf16 view of a [B, N, H, width] buffer, ``offset``
+    elements past a 16-byte aligned base."""
+    width = width or d
+    flat = torch.zeros(B * N * H * width + 8, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    return flat[offset:offset + B * N * H * width].view(B, N, H, width)[..., :d].transpose(1, 2)
+
+
+@pytest.mark.parametrize("offset,width,d,match", [
+    (1, None, 40, "16-byte aligned base address"),  # the base one element off
+    (0, 12, 8, "multiples of 16 bytes"),            # head and sequence strides of 24 and 48 bytes
+    (0, None, 12, r"head_dim % 8 == 0"),            # no whole 16-byte column groups
+])
+def test_bf16_operands_follow_the_tma_rule(offset, width, d, match):
+    """The bf16 tensor-core kernels copy tiles with TMA: what breaks its
+    16-byte rule raises before any launch."""
+    x = _bf16_view(1, 2, 128, d, offset, width)
+    with pytest.raises(ValueError, match=match):
+        fa._operands(x, x, x)
+
+
+def test_bf16_operands_aligned_views_pass():
+    """The UNet's layout (strided [B, H, N, d] views) keeps the TMA rule at
+    the SD head dims, and the view is handed on as it is."""
+    for d in (8, 24, 40, 80, 128):
+        x = _bf16_view(2, 3, 128, d)
+        assert fa._operands(x, x, x)[0] is x
+
+
+def test_fp32_operands_skip_the_tma_rule():
+    """fp32 runs the FMA kernels, which read rows element by element: an
+    unaligned fp32 view is taken."""
+    flat = torch.zeros(1 * 128 * 2 * 40 + 1)
+    x = flat[1:].view(1, 128, 2, 40).transpose(1, 2)
+    assert fa._operands(x, x, x)[0] is x
+
+
+def test_lse_rows_must_be_aligned():
+    rows = torch.zeros(2 * 128 + 1)
+    fa._f32_rows(rows[:256].view(1, 2, 128), (1, 2, 128), "lse")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._f32_rows(rows[1:].view(1, 2, 128), (1, 2, 128), "lse")
+
+
+def test_kernel_impl_dispatches_by_dtype():
+    """bf16 forward and dK/dV run on the tensor cores; fp32 (TF32 would
+    break its parity) and dQ stay on FMAs."""
+    assert fa.kernel_impl("flash_fwd", torch.bfloat16) == "wgmma"
+    assert fa.kernel_impl("flash_bwd_dkv", torch.bfloat16) == "wgmma"
+    assert fa.kernel_impl("flash_bwd_dq", torch.bfloat16) == "fma"
+    assert {fa.kernel_impl(k, torch.float32) for k in fa.launch_counts} == {"fma"}
+
+
 def test_flash_wiring_rules():
     """The port of tests/test_flash_attention.py::test_flash_wiring_rules:
     flash only on self-attention with 128-divisible N and head_dim ≤ 128;
