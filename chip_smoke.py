@@ -7,9 +7,12 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. The card: its name and power limit as nvidia-smi reports them.
-2. Build the CUDA kernels from ``siss_tpu_torch/ops/csrc`` (nvcc, sm_90a),
-   and show from the library's SASS (cuobjdump) that every bf16 tensor-core
-   flash kernel (``flash::sm90::``) runs HGMMA, Hopper's wgmma.
+2. Build the CUDA kernels from ``siss_tpu_torch/ops/csrc`` (nvcc, sm_90a);
+   print ptxas' registers, spills and any wgmma-serialization warning
+   (C75xx) for each bf16 tensor-core flash kernel (``flash::sm90::``), and
+   fail if ``dq_kernel<40>`` or ``<80>`` (the SD shapes' dQ) spills or
+   serializes; show from the library's SASS (cuobjdump) that every one of
+   those kernels runs HGMMA, Hopper's wgmma.
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
@@ -27,8 +30,8 @@ prints no result):
    strided [B, N, H, d] layout, and (2, 3, 256, 40) once more with
    contiguous [B, H, N, d] operands: every element within its bound, and
    in bf16 the RMS error within its bound too. Each case prints which
-   kernel ran for each (kernel, type): ``wgmma`` or ``fma``. lse and o must
-   repeat bit for bit; the autograd.Function must give the kernels'
+   kernel ran for each (kernel, type): ``wgmma`` or ``fma``. lse, o and dq
+   must repeat bit for bit; the autograd.Function must give the kernels'
    gradients; a shape the kernels cannot take, and a bf16 operand that
    breaks TMA's 16-byte rule, must raise. Then time kernel, plain version
    and PyTorch's scaled_dot_product_attention at the SD shapes.
@@ -57,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -322,12 +326,15 @@ def check_flash_case(torch, shape, dtype, seed, contiguous=False):
     di = fa.row_dot(o, do)
     dk, dv = fa.flash_bwd_dkv(q, k, v, lse, do, di, scale)
     dq = fa.flash_bwd_dq(q, k, v, lse, do, di, scale)
+    dq2 = fa.flash_bwd_dq(q, k, v, lse, do, di, scale)
     torch.cuda.synchronize()
     launched = {key: launch_counts[key] - before[key] for key in FLASH_OPS}
-    if launched != {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
+    if launched != {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}:
         raise AssertionError(f"flash {name}: the wrappers did not launch the kernels: {launched}")
     if not (torch.equal(lse, lse2) and torch.equal(o, o2)):
         raise AssertionError(f"flash {name}: the forward kernel did not repeat bit for bit")
+    if not torch.equal(dq, dq2):
+        raise AssertionError(f"flash {name}: the dQ kernel did not repeat bit for bit")
     impls = {key: fa.kernel_impl(key, dtype) for key in FLASH_OPS}
 
     o_p, lse_p = fa.flash_attention_plain(q, k, v, scale)
@@ -466,10 +473,65 @@ def phase_flash_kernels(torch):
     return record
 
 
+# The tensor-core kernels that must not spill or serialize their wgmma:
+# dQ at the SD UNet's two head dims.
+SM90_CLEAN = ("flash::sm90::dq_kernel<40>", "flash::sm90::dq_kernel<80>")
+
+
+def sm90_name(mangled):
+    """``flash::sm90::<kernel><D>`` for the mangled name of a bf16
+    tensor-core flash kernel (``_ZN5flash4sm90…``), else None."""
+    m = re.match(r"_ZN5flash4sm90(\d+)", mangled)
+    if m is None:
+        return None
+    n, rest = int(m.group(1)), mangled[m.end():]
+    d = re.match(r"ILi(\d+)E", rest[n:])
+    return f"flash::sm90::{rest[:n]}" + (f"<{d.group(1)}>" if d else "")
+
+
+def ptxas_report(log):
+    """{kernel: {"registers", "spill_bytes", "warnings"}} of the bf16
+    tensor-core flash kernels, from ptxas' -v output in the build log."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        named = re.search(r"(?:entry function|Function properties for|the function) '?(_Z\w+)", line)
+        if named:
+            fn = sm90_name(named.group(1))
+            if fn is not None:
+                report.setdefault(fn, {"registers": None, "spill_bytes": 0, "warnings": []})
+        if fn is None:
+            continue
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            report[fn]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            report[fn]["registers"] = int(m.group(1))
+        elif m := re.search(r"\((C75\d\d)\)", line):
+            report[fn]["warnings"].append(m.group(1))
+    return report
+
+
+def check_ptxas(log):
+    """Print each tensor-core kernel's registers, spills and C75xx
+    warnings; raise if one of SM90_CLEAN spills or serializes its wgmma."""
+    report = ptxas_report(log)
+    for line in log.splitlines():
+        if "(C75" in line:
+            print("  " + line.strip())
+    for fn, r in sorted(report.items()):
+        print(f"  ptxas {fn}: {r['registers']} registers, {r['spill_bytes']} bytes spilled, "
+              f"warnings {r['warnings'] or 'none'}")
+    for fn in SM90_CLEAN:
+        r = report.get(fn)
+        if r is None or r["registers"] is None:
+            raise AssertionError(f"ptxas reported nothing for {fn}")
+        if r["spill_bytes"] or r["warnings"]:
+            raise AssertionError(f"{fn}: {r['spill_bytes']} bytes spilled, warnings {r['warnings']}")
+
+
 def check_tensor_core_sass(lib_path):
     """Count HGMMA (wgmma) instructions per kernel in the built library's
     SASS and print them for the bf16 tensor-core flash kernels; raise if
-    one has none."""
+    one has none, or if a kernel of SM90_CLEAN is missing."""
     from siss_tpu_torch.ops import build
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -479,16 +541,17 @@ def check_tensor_core_sass(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
+            fn = sm90_name(fn) or fn
             counts[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
             first.setdefault(fn, " ".join(line.split("*/")[1].split()) if "*/" in line else line)
-    sm90 = {f: n for f, n in counts.items() if "sm90" in f}
-    if not sm90 or not all(sm90.values()):
+    sm90 = {f: n for f, n in counts.items() if f.startswith("flash::sm90::")}
+    if not sm90 or not all(sm90.values()) or not set(SM90_CLEAN) <= set(sm90):
         raise AssertionError(f"tensor-core flash kernels without HGMMA in their SASS: {sm90}")
-    for f, n in sm90.items():
+    for f, n in sorted(sm90.items()):
         print(f"  SASS {f}: {n} HGMMA, e.g. {first[f]}")
-    others = sum(n for f, n in counts.items() if "sm90" not in f)
+    others = sum(n for f, n in counts.items() if f not in sm90)
     print(f"  SASS: {others} HGMMA in the other {len(counts) - len(sm90)} kernels")
 
 
@@ -654,9 +717,7 @@ def main() -> int:
     build.load()
     info = build.build_info
     print(f"kernels built in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line or "C75" in line:
-            print("  " + line.strip())
+    check_ptxas(info["log"])
     check_tensor_core_sass(info["path"])
 
     record = phase_kernels(torch)
@@ -672,7 +733,7 @@ def main() -> int:
                "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120"),
                "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
                "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
-               "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
+               "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **record[name]) for name, (src, rep) in sources.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")

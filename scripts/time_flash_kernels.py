@@ -9,9 +9,10 @@ its kernels there, and prints one JSON line: the card, and the median
 device ms of one launch of flash_fwd, flash_bwd_dkv and flash_bwd_dq at
 (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) in bf16, operands in
 the UNet's [B, N, H, d] layout, timed as ``chip_smoke.py`` times them (CUDA
-events over 20-launch batches, the device kept ahead of the host). To
-compare two checkouts on one card, run it for each in turns (A, B, B, A)
-in one command.
+events over 20-launch batches, the device kept ahead of the host), and
+ptxas' registers, spills and C75xx warnings for the tensor-core kernels at
+those head dims. To compare two checkouts on one card, run it for each in
+turns (A, B, B, A) in one command.
 """
 
 from __future__ import annotations
@@ -61,8 +62,10 @@ def main() -> int:
                "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale)}
         for name, fn in fns.items():
             times[f"{name} {list(shape)}"] = statistics.median(smoke.gpu_ms(torch, fn))
+    ptxas = {fn: r for fn, r in smoke.ptxas_report(build.build_info["log"]).items()
+             if fn.endswith(("<40>", "<80>"))}
     print(json.dumps({"label": args.label or str(args.root), "card": smoke.card_line(),
-                      "build_s": build.build_info["seconds"], "ms": times}))
+                      "build_s": build.build_info["seconds"], "ms": times, "ptxas": ptxas}))
     return 0
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "siss_tpu_torch_kernels"
 SOURCES = ("siss_reduce.cu", "siss_bwd.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-           "flash_bwd_dkv_sm90.cu")
+           "flash_bwd_dkv_sm90.cu", "flash_bwd_dq_sm90.cu")
 # --fmad=false: no multiply-add contraction, so each elementwise step rounds
 # as PyTorch's op-by-op plain versions do; the SISS backward kernel then
 # matches its plain version bit for bit. The flash kernels' products call
@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 #: What the last build did: seconds it took (0.0 when the library was
-#: already built), nvcc's output, including ptxas' register report, and the
+#: already built), nvcc's output, including ptxas' register report (kept
+#: beside the library and read back when it was already built), and the
 #: library's path.
 build_info = {"seconds": None, "log": "", "path": None}
 
@@ -72,8 +73,10 @@ def _run(cmds):
 def build() -> Path:
     """Compile the kernels if this version of the sources is not built yet."""
     lib_path = BUILD_DIR / f"libsiss_tpu_torch_kernels-{_digest()}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
-        build_info.update(seconds=0.0, log="", path=lib_path)
+        log = log_path.read_text() if log_path.exists() else ""
+        build_info.update(seconds=0.0, log=log, path=lib_path)
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -83,6 +86,7 @@ def build() -> Path:
                 for s, o in zip(SOURCES, objs)])
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     log += _run([[nvcc, "-shared", *map(str, objs), "-o", str(tmp)]])
+    log_path.write_text(log)
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     for o in objs:
         o.unlink()

@@ -14,10 +14,9 @@
 // kernels do before their second product; sums are fp32, outputs in the
 // operands' type.
 //
-// flash_bwd_dkv dispatches on the operands' type: bf16 runs the
-// tensor-core kernel of flash_bwd_dkv_sm90.cu, fp32 the FMA dK/dV kernel
-// below (tensor cores would mean TF32). dQ runs the FMA kernel below in
-// both types.
+// Both entry points dispatch on the operands' type: bf16 runs the
+// tensor-core kernels of flash_bwd_dkv_sm90.cu and flash_bwd_dq_sm90.cu,
+// fp32 the FMA kernels below (tensor cores would mean TF32).
 //
 // Bound on an H100 SXM: by operations. dK/dV does 8 B H N^2 d of them (s,
 // dv, dp, dk) and dQ 6 B H N^2 d (s, dp, dq): at (1, 8, 4096, 40) in bf16
@@ -213,8 +212,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dkv, with q, k, v, dout, dq in strides[0..14]; the FMA
-// kernel in both types.
+// As flash_bwd_dkv, with q, k, v, dout, dq in strides[0..14].
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* lse,
                             const void* dout, const void* di, void* dq, int B, int H, int N,
                             int d, int D, int dtype, const long long* strides, float scale,
@@ -225,6 +223,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dq<float>(q, k, v, l, dout, t, dq, B, H, N, d, D, strides, scale, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, l, dout, t, dq, B, H, N, d, D, strides, scale, s);
+    return launch_dq_bf16_sm90(q, k, v, l, dout, t, dq, B, H, N, d, D, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }

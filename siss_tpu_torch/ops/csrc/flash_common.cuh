@@ -1,17 +1,18 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// and the bf16 tensor-core kernels of flash_fwd_sm90.cu and
-// flash_bwd_dkv_sm90.cu, whose own pieces are in flash_sm90.cuh).
+// and the bf16 tensor-core kernels of flash_fwd_sm90.cu,
+// flash_bwd_dkv_sm90.cu and flash_bwd_dq_sm90.cu, whose own pieces are in
+// flash_sm90.cuh).
 //
 // Every operand is a [B, H, N, d] tensor given by its element strides, with
 // the head dimension contiguous, so the kernels read q, k and v straight
 // from the [B, N, H, d] outputs of the to_q/to_k/to_v projections and write
 // o, dq, dk and dv in that layout too. All arithmetic is fp32.
 //
-// The FMA kernels below run the fp32 forward and dK/dV and the dQ of both
-// types. Work split: each block owns ROWS rows of one (batch, head) of the
-// "row" operand (queries for the forward and dQ, keys for dK/dV) and streams
-// the other operand through shared memory in tiles of kTile rows, converted
-// to fp32 once per tile. A row's head dimension is split over TPR
+// The FMA kernels below run the fp32 forward, dK/dV and dQ. Work split:
+// each block owns ROWS rows of one (batch, head) of the "row" operand
+// (queries for the forward and dQ, keys for dK/dV) and streams the other
+// operand through shared memory in tiles of kTile rows, converted to fp32
+// once per tile. A row's head dimension is split over TPR
 // neighbouring lanes, DH columns each, so a row's accumulators stay in
 // registers at every head dim up to 128; a dot product over the head
 // dimension is summed across those lanes with shuffles. All lanes of a block
@@ -139,7 +140,7 @@ inline Strides strides_at(const long long* s, int i) {
 }
 
 // The bf16 kernels on Hopper's tensor cores, with the arguments of
-// flash_fwd and flash_bwd_dkv (bf16 operands; lse and di fp32).
+// flash_fwd, flash_bwd_dkv and flash_bwd_dq (bf16 operands; lse and di fp32).
 int launch_fwd_bf16_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                          int H, int N, int d, int D, const long long* strides, float scale,
                          cudaStream_t stream);
@@ -147,6 +148,9 @@ int launch_dkv_bf16_sm90(const void* q, const void* k, const void* v, const floa
                          const void* dout, const float* di, void* dk, void* dv, int B, int H,
                          int N, int d, int D, const long long* strides, float scale,
                          cudaStream_t stream);
+int launch_dq_bf16_sm90(const void* q, const void* k, const void* v, const float* lse,
+                        const void* dout, const float* di, void* dq, int B, int H, int N, int d,
+                        int D, const long long* strides, float scale, cudaStream_t stream);
 
 }  // namespace flash
 

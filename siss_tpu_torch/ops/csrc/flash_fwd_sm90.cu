@@ -88,13 +88,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     if (threadIdx.x == nc * kWarpgroup) {
       mbar_expect_tx(q_full, rows * kGroups * 16);
       tma_load_tile(qs, &tq, q_full, m0, h, b);
-      for (int t = 0; t < tiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load_tile(ks + s * kTileBytes, &tk, &full[s], t * kKeys, h, b);
-        tma_load_tile(vs + s * kTileBytes, &tv, &full[s], t * kKeys, h, b);
-      }
+      produce_kv_ring(ks, vs, &tk, &tv, full, empty, kStages, kTileBytes, kKeys, tiles, h, b);
     }
     return;
   }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) pieces of the bf16 flash-attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): the shared-memory tile layout,
-// its wgmma descriptors, TMA tile copies and mbarriers, and the wgmma
-// instructions themselves.
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu): the
+// shared-memory tile layout, its wgmma descriptors, TMA tile copies and
+// mbarriers, and the wgmma instructions themselves.
 //
 // Tile layout. A tile holds R rows of a [B, H, N, d] bf16 operand (R
 // queries or keys) and K columns (d padded up to wgmma's k-depth of 16, so
@@ -11,8 +11,9 @@
 // Each 8-row, 16-byte block is one of wgmma's 128-byte "core matrices"
 // (the no-swizzle INTERLEAVE layout), so one tile serves as a K-major
 // operand (rows = M or N, columns = K: S = Q K^T) and as an MN-major B
-// operand (rows = K, columns = N: O += P V), with no transpose, at every
-// head dim that is a multiple of 8: N = d in P V is any multiple of 8.
+// operand (rows = K, columns = N: O += P V, dQ += dS K), with no
+// transpose, at every head dim that is a multiple of 8: N = d in P V is
+// any multiple of 8.
 // A 5-D TMA tensor map over (8 elements, rows, column groups, heads, batch)
 // with strides (2 bytes, row, 16 bytes, head, batch) copies a tile in this
 // layout in one instruction; the groups past d/8 are out of bounds and TMA
@@ -121,6 +122,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The producer lane of the forward and dQ kernels: key tiles t = 0 ...
+// tiles - 1 of K and V, `keys` rows and `tile_bytes` each, into ring stage
+// t % stages once every consumer warp has released what that stage held.
+__device__ __forceinline__ void produce_kv_ring(uint8_t* ks, uint8_t* vs, const CUtensorMap* tk,
+                                                const CUtensorMap* tv, uint64_t* full,
+                                                uint64_t* empty, int stages, int tile_bytes,
+                                                int keys, int tiles, int h, int b) {
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % stages;
+    if (t >= stages) mbar_wait(&empty[s], (t / stages - 1) & 1);
+    mbar_expect_tx(&full[s], 2 * tile_bytes);
+    tma_load_tile(ks + s * tile_bytes, tk, &full[s], t * keys, h, b);
+    tma_load_tile(vs + s * tile_bytes, tv, &full[s], t * keys, h, b);
+  }
 }
 
 // --- wgmma -----------------------------------------------------------------

@@ -11,10 +11,11 @@ CUDA C++ for sm_90a, carry it on the card:
   another, from q, k, v, lse, dO and di = rowsum(O·dO).
 
 Each C entry point dispatches on the operands' type (``kernel_impl``): bf16
-forward and dK/dV run on the tensor cores (``wgmma``, with TMA tile copies:
-``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``); fp32, and dQ
-in both types, run on fp32 FMAs (``fma``: ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``), since tensor cores would round fp32 to TF32.
+runs on the tensor cores (``wgmma``, with TMA tile copies:
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``,
+``csrc/flash_bwd_dq_sm90.cu``); fp32 runs on fp32 FMAs (``fma``:
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), since tensor cores would
+round fp32 to TF32.
 
 Each has a plain PyTorch version beside it (``flash_attention_plain``,
 ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``; ``flash_attention_bwd_plain``
@@ -49,7 +50,7 @@ _SEQ_MULTIPLE = 128
 # What each C entry point runs for each operand type.
 _IMPLS = {"flash_fwd": {torch.float32: "fma", torch.bfloat16: "wgmma"},
           "flash_bwd_dkv": {torch.float32: "fma", torch.bfloat16: "wgmma"},
-          "flash_bwd_dq": {torch.float32: "fma", torch.bfloat16: "fma"}}
+          "flash_bwd_dq": {torch.float32: "fma", torch.bfloat16: "wgmma"}}
 
 
 def reset_launch_counts() -> None:

@@ -143,6 +143,10 @@ def main() -> None:
     print("top kernels:")
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.2f} ms x{n:<5d} {name[:110]}")
+    print("this repo's kernels:")
+    for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+        if name.startswith(("void siss::", "void flash::", "siss::", "flash::")):
+            print(f"  {ms:9.2f} ms x{n:<5d} {name.split('(')[0]}")
 
 
 if __name__ == "__main__":

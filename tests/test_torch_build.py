@@ -75,3 +75,17 @@ def test_load_sets_matching_argtypes(loaded, name):
             assert ctype is ctypes.c_float, (name, param)
         else:
             pytest.fail(f"{name}: no rule for the C parameter {param!r}")
+
+
+def test_cached_build_keeps_its_log(tmp_path, monkeypatch):
+    """A library already built is loaded as it is, with the nvcc output of
+    the build that made it (ptxas' register report, which chip_smoke.py
+    checks)."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_info", dict(build.build_info))
+    lib = tmp_path / f"libsiss_tpu_torch_kernels-{build._digest()}.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 111 registers")
+    assert build.build() == lib
+    assert build.build_info["seconds"] == 0.0
+    assert "Used 111 registers" in build.build_info["log"]

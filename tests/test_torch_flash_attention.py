@@ -1,15 +1,21 @@
 """The port's flash attention (siss_tpu_torch.ops.flash_attention) against
 the JAX library's flash-attention reference, and the port's wiring rules.
 
-The Pallas TPU kernel itself runs only on a TPU (tests/test_flash_attention.py
-skips it elsewhere), and ``mha_reference``'s own custom backward raises for
-sm_scale ≠ 1, so the JAX side here is ``mha_reference_no_custom_vjp`` and
-its ``jax.vjp``. On the CPU the port's wrappers run the kernels' plain
-versions; the CUDA kernels are held against those on the card by
+Two JAX sides. The whole attention is ``mha_reference_no_custom_vjp`` and its
+``jax.vjp`` (``mha_reference``'s own custom backward raises for sm_scale ≠
+1). The backward kernels are also held to the Pallas TPU kernels themselves,
+``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``, which run on
+the CPU under ``pltpu.force_tpu_interpret_mode()`` (about a second a case at
+N = 256), in bf16 and fp32. On the CPU the port's wrappers run the kernels'
+plain versions; the CUDA kernels are held against those on the card by
 chip_smoke.py. Tolerances, fp32: outputs atol 2e-6 and lse 2e-6 relative
 (sums of N ≤ 256 terms of O(1) in another order), gradients atol 1e-5
 (their sums run over N terms of products of O(1) values and of the softmax
-weights, both orders differing).
+weights, both orders differing). bf16 gradients against the Pallas kernels:
+one bf16 ulp of |want| (2⁻⁷·|want|, the final rounding of two nearby fp32
+sums) plus atol 2⁻¹² (both round P or dS to bf16 before the second product,
+but from P = exp(s − m)/l there and exp(s − lse) here, so a few terms round
+the other way by one ulp of their own size).
 """
 
 import math
@@ -19,6 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jfa
 from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference_no_custom_vjp
 
 import torch_parity  # noqa: F401  (torch threads, no TF32)
@@ -66,6 +74,70 @@ def test_plain_backward_matches_jax_vjp(N, d):
     got = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, scale)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0, err_msg=name)
+
+
+# (dtype, d) of the cases held to the Pallas backward kernels, at B, H, N = 1, 2, 256.
+PALLAS_CASES = [(dtype, d) for dtype in ("bfloat16", "float32") for d in (8, 40, 80)]
+
+
+def pallas_case(dtype, d, seed):
+    """q, k, v, dO in ``dtype`` (numpy normals, rounded), l and m from
+    ``mha_reference_no_custom_vjp`` on fp32 copies, di = rowsum(O·dO) with O
+    in ``dtype``: the residuals both backward versions take."""
+    rng = np.random.default_rng(seed)
+    ops_t = [torch.from_numpy(rng.standard_normal((1, 2, 256, d)).astype(np.float32))
+             .to(getattr(torch, dtype)) for _ in range(4)]
+    f32 = [t.float().numpy() for t in ops_t]
+    scale = 1.0 / math.sqrt(d)
+    o, l, m = mha_reference_no_custom_vjp(*map(jnp.asarray, f32[:3]), sm_scale=scale,
+                                          save_residuals=True)
+    di = fa.row_dot(torch.from_numpy(np.array(o)).to(ops_t[0].dtype), ops_t[3])
+    jax_ops = [jnp.asarray(x, getattr(jnp, dtype)) for x in f32]
+    port_ops = [bnhd_view(x).to(ops_t[0].dtype) for x in f32]
+    lse = torch.from_numpy(np.array(m + jnp.log(l)))
+    return jax_ops, l, m, jnp.asarray(di.numpy()), port_ops, lse, di, scale
+
+
+def assert_close_to_pallas(got, want, dtype, name):
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        np.testing.assert_array_less(np.abs(got - want), 2.0 ** -7 * np.abs(want) + 2.0 ** -12,
+                                     err_msg=name)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,d", PALLAS_CASES)
+def test_dq_matches_the_pallas_kernel(dtype, d):
+    """flash_bwd_dq (its plain version on the CPU) against the TPU kernel
+    _flash_attention_dq_kernel, run in TPU interpret mode."""
+    jax_ops, l, m, j_di, port_ops, lse, di, scale = pallas_case(dtype, d, seed=4)
+    q, k, v, do = jax_ops
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = jfa._flash_attention_bwd_dq(
+            q, k, v, None, None, l, m, do, j_di, block_q_major=128, block_k_major=128,
+            block_k=128, sm_scale=scale, causal=False, mask_value=jfa.DEFAULT_MASK_VALUE,
+            debug=False)
+    got = fa.flash_bwd_dq(*port_ops[:3], lse, port_ops[3], di, scale)
+    assert got.dtype == port_ops[0].dtype
+    assert_close_to_pallas(got, want, dtype, "dq")
+
+
+@pytest.mark.parametrize("dtype,d", PALLAS_CASES)
+def test_dkv_matches_the_pallas_kernel(dtype, d):
+    """flash_bwd_dkv (its plain version on the CPU) against the TPU kernel
+    _flash_attention_dkv_kernel, run in TPU interpret mode."""
+    jax_ops, l, m, j_di, port_ops, lse, di, scale = pallas_case(dtype, d, seed=5)
+    q, k, v, do = jax_ops
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa._flash_attention_bwd_dkv(
+            q, k, v, None, None, l, m, do, j_di, block_q_major=128, block_q=128,
+            block_k_major=128, block_k=128, sm_scale=scale, causal=False,
+            mask_value=jfa.DEFAULT_MASK_VALUE, debug=False)
+    got = fa.flash_bwd_dkv(*port_ops[:3], lse, port_ops[3], di, scale)
+    for name, g, w in zip(("dk", "dv"), got, want):
+        assert g.dtype == port_ops[0].dtype
+        assert_close_to_pallas(g, w, dtype, name)
 
 
 def test_autograd_function_uses_the_explicit_backward():
@@ -180,11 +252,11 @@ def test_lse_rows_must_be_aligned():
 
 
 def test_kernel_impl_dispatches_by_dtype():
-    """bf16 forward and dK/dV run on the tensor cores; fp32 (TF32 would
-    break its parity) and dQ stay on FMAs."""
+    """bf16 forward, dK/dV and dQ run on the tensor cores; fp32 (TF32 would
+    break its parity) stays on FMAs."""
     assert fa.kernel_impl("flash_fwd", torch.bfloat16) == "wgmma"
     assert fa.kernel_impl("flash_bwd_dkv", torch.bfloat16) == "wgmma"
-    assert fa.kernel_impl("flash_bwd_dq", torch.bfloat16) == "fma"
+    assert fa.kernel_impl("flash_bwd_dq", torch.bfloat16) == "wgmma"
     assert {fa.kernel_impl(k, torch.float32) for k in fa.launch_counts} == {"fma"}
 
 
