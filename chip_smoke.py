@@ -17,10 +17,12 @@ prints no result):
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
    step's shape [1, 64, 64, 4] fp32 with the SD schedule's t = 999 (one
-   row split into 8 chunks), and ragged shapes (28×28×1, and 15×15×3,
-   whose row length takes the one-element-per-load path). The reduce runs
-   twice and must repeat bit for bit. Then time kernel and plain version
-   at the celeb and the SD shapes.
+   row split into 8 chunks), the t-shirt step's [64, 28, 28, 1] fp32 with
+   t ~ U{0..999}, and ragged shapes (28×28×1, and 15×15×3, whose row
+   length takes the one-element-per-load path). The reduce runs twice and
+   must repeat bit for bit. Then time kernel and plain version at the
+   celeb, SD and t-shirt shapes, and an empty kernel launched the same way
+   (the launch floor, for 1 and 2 launches).
 4. Hold the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card: o, lse, dq, dk and dv at the SD
    shapes (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) and at
@@ -34,17 +36,28 @@ prints no result):
    must repeat bit for bit; the autograd.Function must give the kernels'
    gradients; a shape the kernels cannot take, and a bf16 operand that
    breaks TMA's 16-byte rule, must raise. Then time kernel, plain version
-   and PyTorch's scaled_dot_product_attention at the SD shapes.
+   and PyTorch's scaled_dot_product_attention at the SD shapes, in bf16 and
+   in fp32 (the FMA kernels; SDPA with TF32 off; bound at 67 TFLOP/s).
 5. One fused SISS train step of a tiny UNet on the card against the same
    step on the CPU (plain versions), from the same weights and draws; then
    the same for the SD latent step of a tiny conditional UNet whose level-0
    self-attention (256 tokens) runs the flash kernels.
-6. The celeb main path at full width: UNet2DConfig.celebahq_256(),
+6. The t-shirt task through ``siss_tpu_torch.main`` at the full
+   mnist_tshirt width (``configs/train_tshirt_mnist.yaml`` and
+   ``configs/delete_tshirt.yaml``): pretrain 10 epochs of the repository's
+   5,632 images at batch 128 (440 steps), check the checkpoint bundle, then
+   30 SISS unlearning steps at batch 64 from its ``latest`` with 50-step
+   DDPM evaluations of 128 images every 10 steps; they must launch the
+   reduce exactly 30 and the SISS backward 60 times and log finite values
+   of the task's metric keys. Then the probe: ε-MSE at t = 300 on 256
+   forget and 256 keep images before and after; the forget ratio must
+   exceed the keep ratio.
+7. The celeb main path at full width: UNet2DConfig.celebahq_256(),
    microbatch 16 × 4 accumulation steps, fp32 params with bf16 autocast,
    AdamW(5e-6, betas (0.95, 0.999), wd 1e-6), scaling_norm 500, λ 0.5,
    t ≡ 999, EMA; random weights from a seed; 1 warm-up and 3 timed steps.
    Each step must launch the reduce 4 times and the SISS backward 8 times.
-7. The SD main path at full width (``profile_step.make_sd_path``, the
+8. The SD main path at full width (``profile_step.make_sd_path``, the
    ``configs/delete_sd.yaml`` step of ``bench.py --workload sd`` with
    ``attention_impl="flash"``): the sd_v1 UNet, microbatch 1 × 16
    accumulation steps; 1 warm-up and 2 timed steps. Each step must launch
@@ -76,8 +89,10 @@ H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, H100 SXM data sheet
 H100_EXP_PER_S = 16 * 132 * 1.98e9
 REDUCE_FLOPS_PER_ELEM = 14     # 2 residuals (mul+sub), 2 eps (mul+sub), 4 squares+adds
 BWD_FLOPS_PER_ELEM = 11        # 2 residuals, 2 eps, 2 weights, 1 add
-# The SISS kernels' operands on the SD step: one [64, 64, 4] latent per microbatch.
+# The SISS kernels' operands on the SD step: one [64, 64, 4] latent per
+# microbatch; on the t-shirt unlearning step: 64 [28, 28, 1] images.
 SISS_SD_SHAPE = (1, 64, 64, 4)
+SISS_TSHIRT_SHAPE = (64, 28, 28, 1)
 # (B, H, N, d): the SD UNet's flash sites (64×64 and 32×32 latents), then
 # a small head dim, the largest one, and one padded to a built head dim.
 FLASH_SD_SHAPES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
@@ -115,15 +130,16 @@ def gpu_ms(torch, fn, launches=20, repeats=5):
     return times
 
 
-def main_path_inputs(torch, sched, shape, dtype, seed):
+def main_path_inputs(torch, sched, shape, dtype, seed, t_range=None):
     """preds, mix, keep, forget, gamma, sigma as the fused step makes them
-    at t = 999 of the noise schedule ``sched``."""
+    at t = 999 of the noise schedule ``sched``, or at t ~ U{t_range}."""
     from siss_tpu_torch.diffusion import q_sample
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     B = shape[0]
     keep, forget, noise, preds = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
-    t = torch.full((B,), 999, device="cuda")
+    t = (torch.full((B,), 999, device="cuda") if t_range is None
+         else torch.randint(*t_range, (B,), generator=gen, device="cuda"))
     mask = (torch.rand(B, generator=gen, device="cuda") > 0.5).reshape((B,) + (1,) * (len(shape) - 1))
     mix = torch.where(mask, q_sample(sched, keep, noise, t), q_sample(sched, forget, noise, t))
     big = [x.to(dtype).contiguous() for x in (preds, mix, keep, forget)]
@@ -262,12 +278,38 @@ def phase_kernels(torch):
         r = random_inputs(torch, shape, dtype, seed=1, lo=0.3, hi=0.7)
         check_kernels(torch, f"ragged {str(dtype)[6:]} {list(shape)}", *r, rtol, max(rtol, 1e-3))
 
-    # The JSON record holds the celeb shape; the SD shape's times are printed.
+    # The t-shirt step's operands: one microbatch of 64 [28, 28, 1] images,
+    # t ~ U{0..999} as configs/delete_tshirt.yaml draws it.
+    tshirt = main_path_inputs(torch, celeb, SISS_TSHIRT_SHAPE, torch.float32, seed=3,
+                              t_range=(0, 1000))
+    check_kernels(torch, f"t-shirt fp32 {list(SISS_TSHIRT_SHAPE)}", *tshirt, 1e-5, 1e-3)
+
+    # The JSON record holds the celeb shape; the SD and t-shirt shapes' times
+    # are printed, beside the launch floor.
     record = siss_times(torch, big, gamma, sigma)
     siss_times(torch, *sd)
+    siss_times(torch, *tshirt)
+    floors = {n: statistics.median(launch_floor_ms(torch, n)) for n in (1, 2)}
+    print(f"launch floor (empty kernel through ctypes on the same stream): "
+          f"{floors[1]:.4f} ms for 1 launch (siss_bwd launches 1), "
+          f"{floors[2]:.4f} ms for 2 (siss_reduce launches 2)")
     for name, err in zip(("siss_reduce", "siss_bwd"), errs):
         record[name].update(max_abs_err=err, library_ms=None)
     return record
+
+
+def launch_floor_ms(torch, n):
+    """gpu_ms of ``n`` launches of the library's empty kernel."""
+    from siss_tpu_torch.ops import build
+
+    lib = build.load()
+
+    def launch():
+        err = lib.empty_launches(n, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+    return gpu_ms(torch, launch)
 
 
 def flash_bound(torch, ref, terms, dtype, N):
@@ -416,61 +458,73 @@ def phase_flash_kernels(torch):
             raise AssertionError(f"flash_fwd took an unsupported {dtype} operand {shape} "
                                  f"(offset {offset}) on the card")
 
-    # Timing at the SD shapes in bf16 (the main path's type), in turns:
-    # plain, kernel, kernel, plain; then SDPA's forward and forward+backward.
+    # Timing at the SD shapes in bf16 (the main path's type), then in fp32
+    # (the FMA kernels, against SDPA in fp32 with TF32 off).
     record = {}
-    for shape in FLASH_SD_SHAPES:
-        B, H, N, d = shape
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
-                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
-        scale = 1.0 / math.sqrt(d)
-        o, lse = fa.flash_fwd(q, k, v, scale)
-        di = fa.row_dot(o, do)
-        fns = {
-            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale),
-                          lambda: fa.flash_attention_plain(q, k, v, scale)),
-            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
-                              lambda: fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)),
-            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale),
-                             lambda: fa.flash_bwd_dq_plain(q, k, v, lse, do, di, scale)),
-        }
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        sdpa_fwd = statistics.median(gpu_ms(torch, lambda: F.scaled_dot_product_attention(
-            *leaves, scale=scale)))
-        sdpa_all = statistics.median(gpu_ms(torch, lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*leaves, scale=scale), leaves, do)))
-        bhn2d = B * H * N * N * d
-        elems = B * H * N * d
-        nbytes = {"flash_fwd": 4 * elems * 2 + B * H * N * 4,
-                  "flash_bwd_dkv": 6 * elems * 2 + 2 * B * H * N * 4,
-                  "flash_bwd_dq": 5 * elems * 2 + 2 * B * H * N * 4}
-        this = {}
-        for name, (kernel, plain) in fns.items():
-            p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
-            t_bytes = nbytes[name] / H100_BYTES_PER_S * 1e3
-            t_ops = FLASH_OPS[name] * bhn2d / H100_BF16_FLOPS * 1e3
-            rec = dict(impl=fa.kernel_impl(name, torch.bfloat16),
-                       max_abs_err=errs[shape, torch.bfloat16][name],
-                       ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       library_ms=sdpa_fwd if name == "flash_fwd" else sdpa_all - sdpa_fwd)
-            this[name] = rec
-            # Every kernel evaluates exp once per (query, key) pair.
-            exp_floor = B * H * N * N / H100_EXP_PER_S * 1e3
-            print(f"kernel time {name} ({rec['impl']}) {list(shape)} bf16: {rec['ms']:.4f} ms  "
-                  f"plain {rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']})  exp floor {exp_floor:.4f} ms  "
-                  f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd (fwd+bwd − fwd)'} "
-                  f"{rec['library_ms']:.4f} ms")
-        print(f"  whole backward {list(shape)} bf16: kernels "
-              f"{this['flash_bwd_dkv']['ms'] + this['flash_bwd_dq']['ms']:.4f} ms  bound "
-              f"{10 * bhn2d / H100_BF16_FLOPS * 1e3:.4f} ms (10·B·H·N²·d)  SDPA "
-              f"{sdpa_all - sdpa_fwd:.4f} ms")
-        # The JSON record holds the 64×64-latent sites, the step's heaviest.
-        record = record or this
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in FLASH_SD_SHAPES:
+            this = time_flash(torch, fa, F, shape, dtype, errs[shape, dtype])
+            # The JSON record holds bf16 at the 64×64-latent sites, the SD
+            # step's heaviest.
+            record = record or this
     return record
+
+
+def time_flash(torch, fa, F, shape, dtype, errs):
+    """Kernel, plain version (in turns: plain, kernel, kernel, plain) and
+    SDPA's forward and forward + backward at one shape and type; the bound
+    from the bytes and the matrix products at the type's peak rate."""
+    B, H, N, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, scale)
+    di = fa.row_dot(o, do)
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale),
+                      lambda: fa.flash_attention_plain(q, k, v, scale)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
+                          lambda: fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, lse, do, di, scale)),
+    }
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_fwd = statistics.median(gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+        *leaves, scale=scale)))
+    sdpa_all = statistics.median(gpu_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, scale=scale), leaves, do)))
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    esize = q.element_size()
+    bhn2d = B * H * N * N * d
+    elems = B * H * N * d
+    nbytes = {"flash_fwd": 4 * elems * esize + B * H * N * 4,
+              "flash_bwd_dkv": 6 * elems * esize + 2 * B * H * N * 4,
+              "flash_bwd_dq": 5 * elems * esize + 2 * B * H * N * 4}
+    type_name = str(dtype)[6:]
+    this = {}
+    for name, (kernel, plain) in fns.items():
+        p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
+        t_bytes = nbytes[name] / H100_BYTES_PER_S * 1e3
+        t_ops = FLASH_OPS[name] * bhn2d / peak * 1e3
+        rec = dict(impl=fa.kernel_impl(name, dtype), max_abs_err=errs[name],
+                   ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=sdpa_fwd if name == "flash_fwd" else sdpa_all - sdpa_fwd)
+        this[name] = rec
+        # Every kernel evaluates exp once per (query, key) pair.
+        exp_floor = B * H * N * N / H100_EXP_PER_S * 1e3
+        print(f"kernel time {name} ({rec['impl']}) {list(shape)} {type_name}: {rec['ms']:.4f} ms  "
+              f"plain {rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}, {peak / 1e12:.0f} TFLOP/s)  exp floor {exp_floor:.4f} ms  "
+              f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd (fwd+bwd − fwd)'} "
+              f"{rec['library_ms']:.4f} ms")
+    print(f"  whole backward {list(shape)} {type_name}: kernels "
+          f"{this['flash_bwd_dkv']['ms'] + this['flash_bwd_dq']['ms']:.4f} ms  bound "
+          f"{10 * bhn2d / peak * 1e3:.4f} ms (10·B·H·N²·d)  SDPA "
+          f"{sdpa_all - sdpa_fwd:.4f} ms")
+    return this
 
 
 # The tensor-core kernels that must not spill or serialize their wgmma:
@@ -692,6 +746,123 @@ def phase_sd_path(torch):
                       per_step, SD_MB * SD_ACCUM)
 
 
+TSHIRT_DATA = ROOT / "data" / "datasets" / "mnist_with_tshirt.npz"
+TSHIRT_WORK = ROOT / "build" / "chip_smoke_tshirt"
+# The pretrain: 10 epochs of the 5,632 images at batch 128 (440 steps).
+TSHIRT_PRETRAIN = ("num_epochs=10", "lr_warmup_steps=50", "sampling_steps=0")
+TSHIRT_STEPS = 30
+TSHIRT_KEYS = ("loss_x/mean", "importance_weight_x/mean", "gradient/scaling_factor",
+               "metrics/deletion_class_fraction", "images_per_sec")
+TSHIRT_PROBE_T, TSHIRT_PROBE_N = 300, 256
+
+
+def tshirt_probe(torch, task, weights):
+    """ε-MSE at t = 300 on the first 256 forget and the first 256 keep
+    images, with one fixed noise draw, for each state dict of ``weights``:
+    {name: (forget MSE, keep MSE)}."""
+    import numpy as np
+
+    from siss_tpu_torch.data import LabeledImageDataset
+    from siss_tpu_torch.diffusion import q_sample
+    from siss_tpu_torch.train import unet_eps_apply
+
+    model, _ = task.build_unet()
+    schedule = task.build_schedule()
+    gen = torch.Generator(device=task.device).manual_seed(300)
+    sets = []
+    for filt in ("deletion", "nondeletion"):
+        ds = LabeledImageDataset.from_npz(filt, str(TSHIRT_DATA), class_to_remove=10)
+        x0 = torch.from_numpy(np.stack([ds[i] for i in range(TSHIRT_PROBE_N)])).to(task.device)
+        sets.append((x0, torch.randn(x0.shape, generator=gen, device=task.device)))
+    t = torch.full((TSHIRT_PROBE_N,), TSHIRT_PROBE_T, device=task.device)
+    out = {}
+    with torch.inference_mode():
+        for name, sd in weights.items():
+            model.load_state_dict(sd)
+            out[name] = tuple(float(((unet_eps_apply(model, q_sample(schedule, x0, noise, t), t,
+                                                     None) - noise) ** 2).mean())
+                              for x0, noise in sets)
+    return out
+
+
+def phase_tshirt(torch, card):
+    """The t-shirt task through the port's command line on the card: the
+    full-width mnist_tshirt pretrain, then 30 SISS unlearning steps from its
+    latest bundle, then the selectivity probe."""
+    import shutil
+
+    from siss_tpu_torch import main as cli
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.utils import CheckpointManager
+
+    shutil.rmtree(TSHIRT_WORK, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    (pre,) = cli.main(["--config-name=train_tshirt_mnist", f"dataset.path={TSHIRT_DATA}",
+                       f"output_dir={TSHIRT_WORK / 'base'}", *TSHIRT_PRETRAIN])
+    pre_peak = torch.cuda.max_memory_allocated()
+    base = Path(str(pre.cfg.output_dir))
+    latest = CheckpointManager(str(base)).latest()
+    if latest is None or not {"state", "unet", "unet_ema"} <= {p.name for p in Path(latest).iterdir()}:
+        raise AssertionError(f"the pretrain wrote no state/unet/unet_ema bundle under {base}")
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (dele,) = cli.main(["--config-name=delete_tshirt", f"checkpoint_path={base}/latest",
+                        f"output_dir={TSHIRT_WORK / 'deletion'}", f"dataset.path={TSHIRT_DATA}",
+                        f"dataset_all.path={TSHIRT_DATA}", f"dataset_deletion.path={TSHIRT_DATA}",
+                        f"training_steps={TSHIRT_STEPS}", "train_batch_size=64",
+                        "deletion.loss_fn=importance_sampling_with_mixture",
+                        "deletion.scaling_norm=5", "sampling_steps=10", "eval_images=128",
+                        "pipeline.num_inference_steps=50", "metrics.likelihood=null"])
+    counts = dict(launch_counts)
+    del_peak = torch.cuda.max_memory_allocated()
+    expected = {k: 0 for k in counts} | {"siss_reduce": TSHIRT_STEPS, "siss_bwd": 2 * TSHIRT_STEPS}
+    if counts != expected:
+        raise AssertionError(f"t-shirt unlearning: launch counts {counts}, expected {expected}")
+
+    out = Path(str(dele.cfg.output_dir))
+    with open(out / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    keys = set().union(*map(set, rows))
+    if missing := [k for k in TSHIRT_KEYS if k not in keys]:
+        raise AssertionError(f"t-shirt metrics.jsonl lacks {missing}")
+    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
+           if isinstance(v, (int, float)) and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"t-shirt: non-finite metrics {bad}")
+    scaling = [r["gradient/scaling_factor"] for r in rows if "gradient/scaling_factor" in r]
+    if len(scaling) != TSHIRT_STEPS or not all(s > 0 for s in scaling):
+        raise AssertionError(f"t-shirt: gradient/scaling_factor {scaling}")
+    fractions = [(r["_step"], r["metrics/deletion_class_fraction"]) for r in rows
+                 if "metrics/deletion_class_fraction" in r]
+
+    mgr = CheckpointManager(str(base))
+    probe = tshirt_probe(torch, dele, {
+        "pretrain unet_ema": mgr.restore_item("latest", "unet_ema"),
+        "unlearned": CheckpointManager(str(out)).restore_item("latest", "unet")})
+    (f0, k0), (f1, k1) = probe["pretrain unet_ema"], probe["unlearned"]
+    forget_ratio, keep_ratio = f1 / f0, k1 / k0
+    pre_med, del_med = statistics.median(pre.step_seconds), statistics.median(dele.step_seconds)
+    print(f"t-shirt ({card}): pretrain {len(pre.step_seconds)} steps at batch "
+          f"{pre.cfg.train_batch_size}: median {pre_med * 1e3:.3f} ms = "
+          f"{int(pre.cfg.train_batch_size) / pre_med:.1f} img/s, peak memory "
+          f"{pre_peak / 2**30:.3f} GiB; unlearning {len(dele.step_seconds)} steps at batch "
+          f"{dele.cfg.train_batch_size}: median {del_med * 1e3:.3f} ms = "
+          f"{int(dele.cfg.train_batch_size) / del_med:.1f} img/s, peak memory "
+          f"{del_peak / 2**30:.3f} GiB, launches {counts}")
+    print(f"t-shirt evaluations ({dele.cfg.eval_images} images, "
+          f"{dele.cfg.pipeline.num_inference_steps}-step DDPM): seconds "
+          f"{[round(x, 4) for x in dele.eval_seconds]}, deletion_class_fraction by step {fractions}")
+    print(f"t-shirt probe (ε-MSE at t = {TSHIRT_PROBE_T}, {TSHIRT_PROBE_N} images each): forget "
+          f"{f0:.6f} → {f1:.6f} (ratio {forget_ratio:.4f}), keep {k0:.6f} → {k1:.6f} "
+          f"(ratio {keep_ratio:.4f}); last step's metrics "
+          + json.dumps({k: v for k, v in [r for r in rows if "loss_x/mean" in r][-1].items()
+                        if k in TSHIRT_KEYS}, sort_keys=True))
+    if not forget_ratio > keep_ratio:
+        raise AssertionError(f"t-shirt: the forget-set ε-MSE ratio {forget_ratio:.4f} is not "
+                             f"above the keep-set ratio {keep_ratio:.4f}")
+
+
 def main() -> int:
     if not (ROOT / "siss_tpu_torch").is_dir():
         print(f"chip_smoke.py must run from a checkout of the repository: no siss_tpu_torch/ "
@@ -723,6 +894,7 @@ def main() -> int:
     record = phase_kernels(torch)
     record.update(phase_flash_kernels(torch))
     phase_tiny_step_parity(torch)
+    phase_tshirt(torch, card)
     celeb_counts = phase_main_path(torch)
     sd_counts = phase_sd_path(torch)
 

@@ -1,14 +1,19 @@
-"""Discrete-time DDPM noise schedule: the tables and q(x_t | x_0).
+"""Discrete-time DDPM noise schedule: the tables, q(x_t | x_0) and the
+reverse-process steps.
 
 Port of ``siss_tpu/diffusion/schedule.py``. The tables are built on the host
 in float64 and cast to float32 exactly as the reference does, so both
-packages hold bitwise-equal γ/σ tables. The sampling steps (``ddpm_step``,
-``ddim_step``, ``spaced_timesteps``) come with the sampling slice.
+packages hold bitwise-equal γ/σ tables. The reverse steps take one scalar
+timestep and compute their coefficients as 0-d float32 tensors on the
+schedule's device, in the reference's order of operations. Their noise is an
+argument (or is drawn from a ``torch.Generator``), so a test can hand in the
+JAX package's draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -90,3 +95,103 @@ def snr_weights(schedule: NoiseSchedule, t: torch.Tensor, like: torch.Tensor) ->
     """SNR = ᾱ/(1 − ᾱ), broadcast against ``like``."""
     a = schedule.alphas_cumprod[t]
     return _bcast(a / (1.0 - a), like)
+
+
+def spaced_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
+    """Descending inference grid with diffusers' leading spacing (stride
+    T // n): for T = 1000, n = 50 it is [980, 960, ..., 0]."""
+    step_ratio = num_train_timesteps // num_inference_steps
+    ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
+    return ts.astype(np.int32)
+
+
+def pred_x0_from_eps(schedule: NoiseSchedule, x_t: torch.Tensor, eps: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    gamma = _bcast(schedule.gamma[t], x_t)
+    sigma = _bcast(schedule.sigma[t], x_t)
+    return (x_t - sigma * eps) / gamma
+
+
+def _model_pred_to_x0(schedule: NoiseSchedule, x_t, model_out, t):
+    if schedule.prediction_type == "epsilon":
+        x0 = pred_x0_from_eps(schedule, x_t, model_out, t)
+    elif schedule.prediction_type == "sample":
+        x0 = model_out
+    elif schedule.prediction_type == "v_prediction":
+        gamma = _bcast(schedule.gamma[t], x_t)
+        sigma = _bcast(schedule.sigma[t], x_t)
+        x0 = gamma * x_t - sigma * model_out
+    else:
+        raise ValueError(f"Unknown prediction_type {schedule.prediction_type!r}")
+    if schedule.clip_sample:
+        x0 = torch.clamp(x0, -schedule.clip_sample_range, schedule.clip_sample_range)
+    return x0
+
+
+TimeIndex = Union[int, torch.Tensor]
+
+
+def _alpha_prods(schedule: NoiseSchedule, t: TimeIndex, prev_t: TimeIndex):
+    """ᾱ_t and ᾱ_prev as 0-d float32 tensors; ᾱ_prev = 1 for ``prev_t < 0``."""
+    ac = schedule.alphas_cumprod
+    prev_t = int(prev_t)
+    alpha_prev = ac[prev_t] if prev_t >= 0 else torch.ones((), dtype=ac.dtype, device=ac.device)
+    return ac[int(t)], alpha_prev
+
+
+def _t_index(schedule: NoiseSchedule, t: TimeIndex) -> torch.Tensor:
+    return torch.full((1,), int(t), dtype=torch.long, device=schedule.gamma.device)
+
+
+def ddpm_step(schedule: NoiseSchedule, x_t: torch.Tensor, model_out: torch.Tensor, t: TimeIndex,
+              prev_t: TimeIndex, noise: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One ancestral DDPM reverse step x_t → x_{prev_t} (diffusers
+    ``DDPMScheduler.step``, ``variance_type="fixed_small"``), for any
+    spacing; ``prev_t < 0`` is the final step and adds no noise. ``noise``
+    [like x_t] is drawn from ``generator`` when not given."""
+    alpha_prod_t, alpha_prod_prev = _alpha_prods(schedule, t, prev_t)
+    beta_prod_t = 1.0 - alpha_prod_t
+    beta_prod_prev = 1.0 - alpha_prod_prev
+    current_alpha = alpha_prod_t / alpha_prod_prev
+    current_beta = 1.0 - current_alpha
+
+    x0 = _model_pred_to_x0(schedule, x_t, model_out, _t_index(schedule, t))
+    # Posterior mean coefficients (Ho et al. eq. 7).
+    coef_x0 = (torch.sqrt(alpha_prod_prev) * current_beta) / beta_prod_t
+    coef_xt = (torch.sqrt(current_alpha) * beta_prod_prev) / beta_prod_t
+    mean = coef_x0 * x0 + coef_xt * x_t
+    if int(prev_t) < 0:
+        return mean
+    # fixed_small variance, clamped as diffusers does.
+    variance = torch.clamp(beta_prod_prev / beta_prod_t * current_beta, min=1e-20)
+    if noise is None:
+        noise = torch.randn(x_t.shape, generator=generator, dtype=x_t.dtype, device=x_t.device)
+    return mean + torch.sqrt(variance) * noise
+
+
+def ddim_step(schedule: NoiseSchedule, x_t: torch.Tensor, model_out: torch.Tensor, t: TimeIndex,
+              prev_t: TimeIndex, eta: float = 0.0, noise: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One DDIM reverse step (diffusers ``DDIMScheduler`` semantics); ``eta
+    = 0`` is deterministic, ``eta > 0`` mixes in ``noise`` (or a draw from
+    ``generator``)."""
+    alpha_prod_t, alpha_prod_prev = _alpha_prods(schedule, t, prev_t)
+    beta_prod_t = 1.0 - alpha_prod_t
+
+    x0 = _model_pred_to_x0(schedule, x_t, model_out, _t_index(schedule, t))
+    # The epsilon consistent with the (possibly clipped) x0.
+    eps = (x_t - torch.sqrt(alpha_prod_t) * x0) / torch.sqrt(beta_prod_t)
+
+    variance = (1.0 - alpha_prod_prev) / (1.0 - alpha_prod_t) * (1.0 - alpha_prod_t / alpha_prod_prev)
+    std = eta * torch.sqrt(torch.clamp(variance, min=0.0))
+    dir_xt = torch.sqrt(torch.clamp(1.0 - alpha_prod_prev - std ** 2, min=0.0)) * eps
+    prev = torch.sqrt(alpha_prod_prev) * x0 + dir_xt
+    if eta > 0.0:
+        if noise is None:
+            if generator is None:
+                raise ValueError("eta > 0 requires noise or a generator")
+            noise = torch.randn(x_t.shape, generator=generator, dtype=x_t.dtype,
+                                device=x_t.device)
+        prev = prev + std * noise
+    return prev

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "siss_tpu_torch_kernels"
 SOURCES = ("siss_reduce.cu", "siss_bwd.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-           "flash_bwd_dkv_sm90.cu", "flash_bwd_dq_sm90.cu")
+           "flash_bwd_dkv_sm90.cu", "flash_bwd_dq_sm90.cu", "launch_floor.cu")
 # --fmad=false: no multiply-add contraction, so each elementwise step rounds
 # as PyTorch's op-by-op plain versions do; the SISS backward kernel then
 # matches its plain version bit for bit. The flash kernels' products call
@@ -108,7 +108,8 @@ def load() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p] * 5 + [i] * 6 + [strides, f, p]
         lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [strides, f, p]
         lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [strides, f, p]
-        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+        lib.empty_launches.argtypes = [i, p]
+        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq, lib.empty_launches):
             fn.restype = i
         _lib = lib
     return _lib

@@ -1,12 +1,13 @@
 """Where a SISS train step's device time goes, on one NVIDIA card.
 
-    python3 -m siss_tpu_torch.profile_step [--workload celeb|sd]
+    python3 -m siss_tpu_torch.profile_step [--workload celeb|sd|tshirt]
 
 ``celeb`` (the default) builds the flagship SISS deletion step (celebahq_256
 UNet, microbatch 16 × 4 accumulation steps, fp32 params with bf16 autocast,
 AdamW, EMA, t ≡ 999); ``sd`` the SD-1.x latent step of
-``configs/delete_sd.yaml`` (``make_sd_path``). Weights are random from a
-seed. The script runs one warm-up step, times three steps on the host
+``configs/delete_sd.yaml`` (``make_sd_path``); ``tshirt`` the unlearning
+step of ``configs/delete_tshirt.yaml`` (``make_tshirt_path``). Weights are
+random from a seed; both TF32 switches are off. The script runs one warm-up step, times three steps on the host
 clock, then traces one step with ``torch.profiler`` and prints the device
 time by kernel family and the device's busy share of the step.
 ``chip_smoke.py`` drives the same steps through ``make_main_path`` and
@@ -24,6 +25,7 @@ import torch
 
 MAIN_ACCUM, MAIN_MB = 4, 16
 SD_ACCUM, SD_MB = 16, 1
+TSHIRT_MB = 64
 
 # Kernel-name fragments → family, first match wins.
 _FAMILIES = (
@@ -96,6 +98,37 @@ def make_sd_path(device="cuda"):
     return state, step, batch, gen
 
 
+def make_tshirt_path(device="cuda"):
+    """(state, step, batch, generator) of the t-shirt unlearning step on
+    ``device``, with ``configs/delete_tshirt.yaml``'s settings: the
+    full-width mnist_tshirt UNet in float32, AdamW(5e-5, betas (0.95,
+    0.999), wd 1e-6, eps 1e-8), SISS with λ 0.5 and scaling_norm 5, t ~
+    U{0..999}, max_grad_norm 1, no EMA, one microbatch of 64 [28, 28, 1]
+    images."""
+    from siss_tpu_torch.diffusion import NoiseSchedule
+    from siss_tpu_torch.models import UNet2DConfig, build_unet
+    from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
+                                      build_optimizer, unet_eps_apply)
+
+    cfg = UNet2DConfig.mnist_tshirt()
+    model = build_unet(cfg, seed=0, dtype=torch.float32, device=device)
+    opt, sched = build_optimizer({"_target_": "torch.optim.AdamW", "lr": 5e-5,
+                                  "betas": [0.95, 0.999], "weight_decay": 1e-6, "eps": 1e-8},
+                                 model.parameters())
+    state = TrainState.create(model, opt, sched)
+    step = build_deletion_train_step(
+        unet_eps_apply, NoiseSchedule.create(1000, "linear", device=device),
+        DeletionStepConfig(loss_params=(("lambd", 0.5),), scaling_norm=5.0, t_min=0, t_max=1000))
+    gen = torch.Generator(device=device).manual_seed(0)
+    hw, ch = cfg.sample_size, cfg.in_channels
+    batch = {k: torch.randn(1, TSHIRT_MB, hw, hw, ch, generator=gen, device=device)
+             for k in ("all", "deletion")}
+    return state, step, batch, gen
+
+
+PATHS = {"celeb": make_main_path, "sd": make_sd_path, "tshirt": make_tshirt_path}
+
+
 def _family(name: str) -> str:
     for frag, fam in _FAMILIES:
         if frag in name:
@@ -107,11 +140,13 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--workload", choices=("celeb", "sd"), default="celeb")
+    parser.add_argument("--workload", choices=tuple(PATHS), default="celeb")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA card")
-    state, step, batch, gen = (make_sd_path if args.workload == "sd" else make_main_path)()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state, step, batch, gen = PATHS[args.workload]()
     state, _ = step(state, batch, gen)
     torch.cuda.synchronize()
     seconds = []
@@ -130,7 +165,10 @@ def main() -> None:
         wall = time.perf_counter() - t0
     by_family, by_kernel = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # A user annotation (e.g. "Optimizer.step#AdamW.step") also appears on
+        # the device's timeline, spanning the kernels it encloses: not busy time.
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             ms = ev.time_range.elapsed_us() / 1e3
             by_family[_family(ev.name)] += ms
             by_kernel[ev.name][0] += ms

@@ -4,6 +4,7 @@ from siss_tpu_torch.train.state import TrainState
 from siss_tpu_torch.train.step import (
     DeletionStepConfig,
     build_deletion_train_step,
+    build_pretrain_step,
     clip_by_global_norm,
     cond_unet_eps_apply,
     global_norm,
@@ -19,6 +20,7 @@ __all__ = [
     "TrainState",
     "DeletionStepConfig",
     "build_deletion_train_step",
+    "build_pretrain_step",
     "clip_by_global_norm",
     "cond_unet_eps_apply",
     "global_norm",

@@ -1,4 +1,5 @@
-"""The unlearning train step: loss → paired gradients → surgery → update.
+"""The unlearning train step: loss → paired gradients → surgery → update;
+and the DDPM pretraining step (``build_pretrain_step``).
 
 Port of the fused SISS branch of ``siss_tpu/train/step.py``: per
 microbatch, q(x_t|x_0) noising of the keep and forget latents with shared
@@ -23,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from siss_tpu_torch.diffusion.schedule import NoiseSchedule, q_sample
+from siss_tpu_torch.diffusion.schedule import NoiseSchedule, q_sample, snr_weights
 from siss_tpu_torch.ops.siss import siss_weighted_sums
 from siss_tpu_torch.train.ema import ema_update
 from siss_tpu_torch.train.state import TrainState
@@ -238,18 +239,64 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         metrics["gradient/scaling_factor"] = scaling
         metrics["gradient/pre_clip_norm"] = pre_clip_norm
 
-        for p, g in zip(params, combined):
-            p.grad = g.to(p.dtype)
-        lr = state.lr_schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-
-        if state.ema is not None:
-            ema_update(state.ema, params, inv_gamma=cfg.ema_inv_gamma, power=cfg.ema_power,
-                       max_decay=cfg.ema_max_decay)
-        state.step += 1
+        _apply_update(state, params, combined, cfg.ema_inv_gamma, cfg.ema_power,
+                      cfg.ema_max_decay)
         return state, metrics
+
+    return step
+
+
+def _apply_update(state: TrainState, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
+                  ema_inv_gamma: float, ema_power: float, ema_max_decay: float) -> None:
+    """The optimizer update with ``schedule(state.step)`` as its LR, then
+    the EMA update and the step count, all in place."""
+    for p, g in zip(params, grads):
+        p.grad = g.to(p.dtype)
+    lr = state.lr_schedule(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    if state.ema is not None:
+        ema_update(state.ema, params, inv_gamma=ema_inv_gamma, power=ema_power,
+                   max_decay=ema_max_decay)
+    state.step += 1
+
+
+def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
+                        prediction_type: str = "epsilon", max_grad_norm: float = 1.0,
+                        ema_inv_gamma: float = 1.0, ema_power: float = 0.75,
+                        ema_max_decay: float = 0.9999):
+    """The DDPM pretraining step of ``siss_tpu/train/step.py``: ε-MSE, or
+    the SNR-weighted sample-prediction loss, clipped by global norm, then the
+    optimizer and EMA updates.
+
+    Returns ``step(state, batch, generator=None, draws=None) -> (state,
+    metrics)``; ``batch`` is [B, H, W, C] clean images; ``draws`` an optional
+    dict of "noise" [B, H, W, C] and "t" [B] used instead of drawing from
+    ``generator`` (t ~ U{0..T−1}). Metrics: "loss" and
+    "gradient/pre_clip_norm"."""
+    if prediction_type not in ("epsilon", "sample"):
+        raise ValueError(prediction_type)
+
+    def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None):
+        if draws is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or explicit draws")
+            draws = {"noise": torch.randn(batch.shape, generator=generator, dtype=batch.dtype,
+                                          device=batch.device),
+                     "t": torch.randint(0, schedule.num_train_timesteps, (batch.shape[0],),
+                                        generator=generator, device=batch.device)}
+        noise, t = draws["noise"], draws["t"]
+        pred = eps_apply(state.model, q_sample(schedule, batch, noise, t), t, None)
+        if prediction_type == "epsilon":
+            loss = ((pred - noise) ** 2).mean()
+        else:
+            loss = (snr_weights(schedule, t, pred) * (pred - batch) ** 2).mean()
+        params = list(state.model.parameters())
+        grads, grad_norm = clip_by_global_norm(torch.autograd.grad(loss, params), max_grad_norm)
+        _apply_update(state, params, grads, ema_inv_gamma, ema_power, ema_max_decay)
+        return state, {"loss": loss.detach(), "gradient/pre_clip_norm": grad_norm}
 
     return step

@@ -1,0 +1,136 @@
+"""Checkpoint save/restore with rotation and a latest scan: port of
+``siss_tpu/utils/checkpoint.py``.
+
+The layout is the JAX package's: ``<root>/checkpoint-<step>/<item>/`` for
+each named item of a bundle (``state``, ``unet``, ``unet_ema``), written to
+``checkpoint-<step>.tmp`` and renamed when complete, so an interrupted save
+never leaves a bundle that ``latest()`` would pick. Each item is one
+``torch.save`` file, ``<item>/item.pt``, of plain containers of CPU tensors
+(state dicts), and loads back with ``weights_only=True``.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import re
+import shutil
+import threading
+from typing import Any, Optional
+
+import torch
+
+ITEM_FILE = "item.pt"
+
+
+def to_host(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor detached and copied to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_host(v) for v in obj)
+    return obj
+
+
+class CheckpointManager:
+    """``async_save=True`` moves the disk write (and rotation) to one
+    background thread; the device-to-host copy stays in ``save_bundle``, so
+    the train loop may update its tensors right after. ``wait()`` drains the
+    pending writes and re-raises the first write error."""
+
+    def __init__(self, output_dir: str, total_limit: Optional[int] = None,
+                 async_save: bool = False):
+        self.root = os.path.abspath(output_dir)
+        self.total_limit = total_limit
+        os.makedirs(self.root, exist_ok=True)
+        self.async_save = async_save
+        self._queue: Optional[queue.Queue] = None
+        self._worker: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _submit(self, job) -> None:
+        if self._worker is None:
+            self._queue = queue.Queue()
+            self._worker = threading.Thread(target=self._drain, daemon=True, name="ckpt-writer")
+            self._worker.start()
+        self._queue.put(job)
+
+    def _drain(self) -> None:
+        while True:
+            job = self._queue.get()
+            try:
+                job()
+            except Exception as e:  # surfaced by the next wait()
+                self._error = e
+            finally:
+                self._queue.task_done()
+
+    def wait(self) -> None:
+        if self._queue is not None:
+            self._queue.join()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.root, f"checkpoint-{step}")
+
+    def list_checkpoints(self):
+        if not os.path.isdir(self.root):
+            return []
+        out = []
+        for name in os.listdir(self.root):
+            m = re.fullmatch(r"checkpoint-(\d+)", name)
+            if m:
+                out.append((int(m.group(1)), os.path.join(self.root, name)))
+        return sorted(out)
+
+    def latest(self) -> Optional[str]:
+        cps = self.list_checkpoints()
+        return cps[-1][1] if cps else None
+
+    def save_bundle(self, step: int, items: dict) -> str:
+        """Save the named items (``None`` ones are skipped) under one
+        ``checkpoint-<step>/``."""
+        path = self._path(step)
+        items = {k: to_host(v) for k, v in items.items() if v is not None}
+        if self.async_save:
+            self._submit(lambda: self._write_bundle(path, items))
+        else:
+            self._write_bundle(path, items)
+        return path
+
+    def _write_bundle(self, path: str, items: dict) -> None:
+        tmp = path + ".tmp"
+        for stale in (path, tmp):
+            if os.path.exists(stale):
+                shutil.rmtree(stale)
+        for name, item in items.items():
+            os.makedirs(os.path.join(tmp, name))
+            torch.save(item, os.path.join(tmp, name, ITEM_FILE))
+        os.rename(tmp, path)
+        self._rotate()
+
+    def _resolve(self, checkpoint_path: str) -> str:
+        path = self.latest() if checkpoint_path == "latest" else checkpoint_path
+        if path is None:
+            raise FileNotFoundError(f"No checkpoints under {self.root}")
+        if not os.path.isabs(path) and not os.path.exists(path):
+            path = os.path.join(self.root, path)
+        return path
+
+    def restore_item(self, checkpoint_path: str, name: str) -> Any:
+        """One named item of a bundle, on the CPU; ``checkpoint_path`` may be
+        'latest'."""
+        path = os.path.join(self._resolve(checkpoint_path), name, ITEM_FILE)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def _rotate(self):
+        """Keep the newest ``total_limit`` checkpoints."""
+        if self.total_limit is None:
+            return
+        cps = self.list_checkpoints()
+        for _, path in cps[:max(len(cps) - int(self.total_limit), 0)]:
+            shutil.rmtree(path, ignore_errors=True)

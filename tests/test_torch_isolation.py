@@ -28,7 +28,14 @@ def test_imports_no_jax():
     assert {"siss_tpu_torch.ops.siss", "siss_tpu_torch.ops.build", "siss_tpu_torch.train.step",
             "siss_tpu_torch.models.unet2d", "siss_tpu_torch.utils.convert",
             "siss_tpu_torch.ops.flash_attention", "siss_tpu_torch.models.unet2d_cond",
-            "siss_tpu_torch.diffusion.sd_pipeline", "siss_tpu_torch.profile_step"} <= set(mods)
+            "siss_tpu_torch.diffusion.sd_pipeline", "siss_tpu_torch.profile_step",
+            "siss_tpu_torch.main", "siss_tpu_torch.config.core", "siss_tpu_torch.data.datasets",
+            "siss_tpu_torch.data.loader", "siss_tpu_torch.data.samplers",
+            "siss_tpu_torch.data.synthetic", "siss_tpu_torch.diffusion.sampling",
+            "siss_tpu_torch.evaluate", "siss_tpu_torch.metrics.tshirt",
+            "siss_tpu_torch.tasks.base", "siss_tpu_torch.tasks.train_unconditional",
+            "siss_tpu_torch.tasks.delete_tshirt", "siss_tpu_torch.utils.checkpoint",
+            "siss_tpu_torch.utils.tracker", "siss_tpu_torch.utils.preemption"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -57,6 +64,30 @@ def test_entry_points_default_to_cuda(entry):
             build_unet(UNet2DConfig(block_out_channels=(16, 32), norm_num_groups=8,
                                     down_block_types=("DownBlock2D", "DownBlock2D"),
                                     up_block_types=("UpBlock2D", "UpBlock2D")))
+
+
+@pytest.mark.parametrize("config", ["train_tshirt_mnist", "delete_tshirt"])
+def test_cli_defaults_to_cuda(config):
+    """Without --device cpu the command line refuses a card-less host, naming
+    cuda, before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    out = _run(["-m", "siss_tpu_torch.main", f"--config-name={config}",
+                "output_dir=/nonexistent/never-written"], cwd=ROOT)
+    assert out.returncode != 0
+    assert "cuda" in out.stderr and "RuntimeError" in out.stderr
+    assert "[siss_tpu_torch] task=" not in out.stdout
+
+
+def test_tasks_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from siss_tpu_torch.config import load_config
+    from siss_tpu_torch.tasks import DeleteTShirt, TrainUnconditional
+
+    for cls, name in ((TrainUnconditional, "train_tshirt_mnist"), (DeleteTShirt, "delete_tshirt")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cls(load_config(name))
 
 
 def test_chip_smoke_fails_without_card():
