@@ -9,10 +9,14 @@ prints no result):
 1. The card: its name and power limit as nvidia-smi reports them.
 2. Build the CUDA kernels from ``siss_tpu_torch/ops/csrc`` (nvcc, sm_90a);
    print ptxas' registers, spills and any wgmma-serialization warning
-   (C75xx) for each bf16 tensor-core flash kernel (``flash::sm90::``), and
-   fail if ``dq_kernel<40>`` or ``<80>`` (the SD shapes' dQ) spills or
-   serializes; show from the library's SASS (cuobjdump) that every one of
-   those kernels runs HGMMA, Hopper's wgmma.
+   (C75xx) for each tensor-core flash kernel (bf16 ``flash::sm90::``, fp32
+   ``flash::tf32x3::``), and fail if ``flash::sm90::dq_kernel<40>`` or
+   ``<80>`` (the SD shapes' dQ) spills or serializes, or if
+   ``flash::tf32x3::fwd_kernel<40>`` or ``<80>`` spills; show from the
+   library's SASS (cuobjdump) that every bf16 kernel runs HGMMA (wgmma) and
+   every fp32 forward runs HMMA with TF32 operands (mma.sync m16n8k8) for
+   both of a key tile's products, with fewer FFMA than one key tile would
+   need on the FMA units, and that the FMA forward is gone.
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
@@ -32,12 +36,21 @@ prints no result):
    strided [B, N, H, d] layout, and (2, 3, 256, 40) once more with
    contiguous [B, H, N, d] operands: every element within its bound, and
    in bf16 the RMS error within its bound too. Each case prints which
-   kernel ran for each (kernel, type): ``wgmma`` or ``fma``. lse, o and dq
-   must repeat bit for bit; the autograd.Function must give the kernels'
-   gradients; a shape the kernels cannot take, and a bf16 operand that
-   breaks TMA's 16-byte rule, must raise. Then time kernel, plain version
-   and PyTorch's scaled_dot_product_attention at the SD shapes, in bf16 and
-   in fp32 (the FMA kernels; SDPA with TF32 off; bound at 67 TFLOP/s).
+   kernel ran for each (kernel, type): ``wgmma``, ``tf32x3`` or ``fma``.
+   lse, o and dq must repeat bit for bit; the autograd.Function must give
+   the kernels' gradients; a shape the kernels cannot take, and a bf16
+   operand that breaks TMA's 16-byte rule, must raise. At the SD shapes the
+   fp32 forward's largest error against a float64 reference (the plain
+   version's formula in float64) must be at most twice the fp32 plain
+   version's own, in o and in lse, and it must agree with
+   ``flash_attention_tf32x3_emulated``, the plain model of its arithmetic,
+   within the same bound. Then time kernel, plain version and PyTorch's
+   scaled_dot_product_attention at the SD shapes, in bf16 and in fp32 (SDPA
+   with TF32 off; the fp32 forward's bound at the TF32 rate for its three
+   products, beside the 67 TFLOP/s FMA bound). The fp32 dQ at
+   (1, 8, 4096, 40) is timed in three rounds spread over the phase, each
+   with the SM clock, power draw and temperature that nvidia-smi sampled
+   during it.
 5. One fused SISS train step of a tiny UNet on the card against the same
    step on the CPU (plain versions), from the same weights and draws; then
    the same for the SD latent step of a tiny conditional UNet whose level-0
@@ -65,8 +78,11 @@ prints no result):
    siss_bwd 32 times.
 
 For each path the kernels' launch counts are set to 0 just before it and
-read just after. The line before the last is the kernels' JSON record; the
-last line is ``{"ok": true, "device": {...}}``.
+read just after. The line before the last is the kernels' JSON record: each
+kernel's launches on the path that runs it (the bf16 flash kernels on the
+SD path, the fp32 forward, ``flash_fwd_fp32``, on phase 5's tiny SD step),
+its times at the heaviest SD site and its error; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -84,6 +100,7 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12       # TF32 tensor cores, dense, H100 SXM data sheet
 # Exponentials per second: 16 a clock per SM (the SFUs) on 132 SMs at the
 # 1.98 GHz boost clock. A floor beside the bound for softmax at small d.
 H100_EXP_PER_S = 16 * 132 * 1.98e9
@@ -102,6 +119,8 @@ FLASH_SHAPES = FLASH_SD_SHAPES + ((2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 
 # multiply-add): the forward's S and P·V; dK/dV recomputes S and dP and
 # forms dV and dK; dQ recomputes S and dP and forms dQ.
 FLASH_OPS = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+# Tensor-core products per product of the 3xTF32 kernels (lo·hi, hi·lo, hi·hi).
+TF32X3_PASSES = 3
 
 
 def card_line() -> str:
@@ -415,6 +434,9 @@ def check_flash_case(torch, shape, dtype, seed, contiguous=False):
             rms_ratios.append(f"{label} {rms_err / rms_bound:.3f}")
         errs[kernel] = max(errs.get(kernel, 0.0), float(err.max()))
 
+    if dtype == torch.float32 and shape in FLASH_SD_SHAPES:
+        check_fp32_forward(torch, fa, name, q, k, v, scale, o, lse, o_p, lse_p, terms, N)
+
     # The autograd.Function on the card: the same kernels, so the same bits.
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     grads = torch.autograd.grad(fa.flash_attention(*leaves, scale), leaves, do)
@@ -427,11 +449,47 @@ def check_flash_case(torch, shape, dtype, seed, contiguous=False):
     return errs
 
 
+def float64_errors(torch, q, k, v, scale, o, lse, o_p, lse_p):
+    """{"o": (kernel's, plain version's), "lse": (…)}: the largest |error|
+    of each against the plain version's formula in float64."""
+    s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    lse64 = torch.logsumexp(s64, dim=-1)
+    o64 = torch.matmul(torch.exp(s64 - lse64[..., None]), v.double())
+    del s64
+    return {label: tuple(float((t.double() - ref).abs().max()) for t in (got, plain))
+            for label, got, plain, ref in (("o", o, o_p, o64), ("lse", lse, lse_p, lse64))}
+
+
+def check_fp32_forward(torch, fa, name, q, k, v, scale, o, lse, o_p, lse_p, terms, N):
+    """The fp32 (3xTF32) forward beyond flash_bound: against a float64
+    reference, the plain version's formula in float64 (flash_attention_plain
+    casts its operands with .float()), its largest error must be at most
+    twice the fp32 plain version's own, in o and in lse: as accurate as
+    cuBLAS in fp32. And it must agree with flash_attention_tf32x3_emulated,
+    the plain model of its arithmetic, within flash_bound."""
+    ratios = []
+    for label, (err, plain_err) in float64_errors(torch, q, k, v, scale, o, lse, o_p,
+                                                  lse_p).items():
+        if not err <= 2 * plain_err:
+            raise AssertionError(f"flash {name} {label}: float64 error {err:.3e}, more than twice "
+                                 f"the fp32 plain version's {plain_err:.3e}")
+        ratios.append(f"{label} {err:.3e} vs plain {plain_err:.3e} ({err / plain_err:.2f}x)")
+    o_e, lse_e = fa.flash_attention_tf32x3_emulated(q, k, v, scale)
+    for label, got, want, t in (("o", o, o_e, terms["o"]), ("lse", lse, lse_e, lse_e.abs())):
+        if not bool(((got - want).abs() <= flash_bound(torch, want, t, torch.float32, N)).all()):
+            raise AssertionError(f"flash {name} {label}: the kernel and its emulated arithmetic "
+                                 f"differ beyond flash_bound")
+    emu_err = float((o - o_e).abs().max())
+    print(f"flash check {name} fp32 forward against float64: {'; '.join(ratios)}; "
+          f"against its emulated arithmetic: o max_abs_err={emu_err:.3e}")
+
+
 def phase_flash_kernels(torch):
     import torch.nn.functional as F
 
     from siss_tpu_torch.ops import flash_attention as fa
 
+    dq_rounds = [dq_round(torch, fa, "before the checks")]
     errs = {}
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -458,22 +516,56 @@ def phase_flash_kernels(torch):
             raise AssertionError(f"flash_fwd took an unsupported {dtype} operand {shape} "
                                  f"(offset {offset}) on the card")
 
+    dq_rounds.append(dq_round(torch, fa, "after the checks"))
     # Timing at the SD shapes in bf16 (the main path's type), then in fp32
-    # (the FMA kernels, against SDPA in fp32 with TF32 off).
-    record = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for shape in FLASH_SD_SHAPES:
-            this = time_flash(torch, fa, F, shape, dtype, errs[shape, dtype])
-            # The JSON record holds bf16 at the 64×64-latent sites, the SD
-            # step's heaviest.
-            record = record or this
+    # (the 3xTF32 forward and the FMA backward, against SDPA in fp32 with
+    # TF32 off). The JSON record holds each kernel at the 64×64-latent
+    # sites, the SD step's heaviest: bf16, and the fp32 forward beside it.
+    times = {(shape, dtype): time_flash(torch, fa, F, shape, dtype, errs[shape, dtype])
+             for dtype in (torch.bfloat16, torch.float32) for shape in FLASH_SD_SHAPES}
+    dq_rounds.append(dq_round(torch, fa, "after the timing"))
+    print("fp32 dQ (fma) [1, 8, 4096, 40] by round: " + "; ".join(dq_rounds))
+    record = dict(times[FLASH_SD_SHAPES[0], torch.bfloat16])
+    record["flash_fwd_fp32"] = times[FLASH_SD_SHAPES[0], torch.float32]["flash_fwd"]
     return record
+
+
+def dq_round(torch, fa, label):
+    """One round of timing the fp32 dQ at (1, 8, 4096, 40) (median of 25
+    batches of 20 launches), with nvidia-smi sampling the SM clock, power
+    draw and temperature every 100 ms during it; a line to print."""
+    B, H, N, d = FLASH_SD_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda").transpose(1, 2)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, scale)
+    di = fa.row_dot(o, do)
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        ms = statistics.median(gpu_ms(torch, lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale),
+                                      repeats=25))
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = [[float(x) for x in line.split(",")] for line in out.splitlines()
+               if line.count(",") == 2 and "N/A" not in line]
+    if not samples:
+        return f"{label} {ms:.4f} ms (no nvidia-smi samples)"
+    clock, power, temp = (statistics.median(col) for col in zip(*samples))
+    return (f"{label} {ms:.4f} ms at SM clock {clock:.0f} MHz, {power:.1f} W, {temp:.0f} C "
+            f"(medians of {len(samples)} samples)")
 
 
 def time_flash(torch, fa, F, shape, dtype, errs):
     """Kernel, plain version (in turns: plain, kernel, kernel, plain) and
     SDPA's forward and forward + backward at one shape and type; the bound
-    from the bytes and the matrix products at the type's peak rate."""
+    from the bytes and the matrix products at the rate of the units the
+    kernel runs them on: bf16 tensor cores; for the fp32 forward the TF32
+    tensor cores, three products each (3xTF32); for the fp32 backward the
+    fp32 FMA units."""
     B, H, N, d = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
@@ -494,7 +586,6 @@ def time_flash(torch, fa, F, shape, dtype, errs):
         *leaves, scale=scale)))
     sdpa_all = statistics.median(gpu_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, scale=scale), leaves, do)))
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     esize = q.element_size()
     bhn2d = B * H * N * N * d
     elems = B * H * N * d
@@ -504,10 +595,13 @@ def time_flash(torch, fa, F, shape, dtype, errs):
     type_name = str(dtype)[6:]
     this = {}
     for name, (kernel, plain) in fns.items():
+        impl = fa.kernel_impl(name, dtype)
+        peak, passes = {"wgmma": (H100_BF16_FLOPS, 1), "tf32x3": (H100_TF32_FLOPS, TF32X3_PASSES),
+                        "fma": (H100_FP32_FLOPS, 1)}[impl]
         p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
         t_bytes = nbytes[name] / H100_BYTES_PER_S * 1e3
-        t_ops = FLASH_OPS[name] * bhn2d / peak * 1e3
-        rec = dict(impl=fa.kernel_impl(name, dtype), max_abs_err=errs[name],
+        t_ops = passes * FLASH_OPS[name] * bhn2d / peak * 1e3
+        rec = dict(impl=impl, max_abs_err=errs[name],
                    ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -515,11 +609,18 @@ def time_flash(torch, fa, F, shape, dtype, errs):
         this[name] = rec
         # Every kernel evaluates exp once per (query, key) pair.
         exp_floor = B * H * N * N / H100_EXP_PER_S * 1e3
-        print(f"kernel time {name} ({rec['impl']}) {list(shape)} {type_name}: {rec['ms']:.4f} ms  "
+        extra = ""
+        if impl == "tf32x3":
+            fma_bound = FLASH_OPS[name] * bhn2d / H100_FP32_FLOPS * 1e3
+            extra = (f"  ({rec['bound_ms'] / rec['ms']:.1%} of it; fp32 FMA bound "
+                     f"{fma_bound:.4f} ms at {H100_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
+        print(f"kernel time {name} ({impl}) {list(shape)} {type_name}: {rec['ms']:.4f} ms  "
               f"plain {rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}, {peak / 1e12:.0f} TFLOP/s)  exp floor {exp_floor:.4f} ms  "
+              f"({rec['bound_by']}, {passes} × {FLASH_OPS[name]}·B·H·N²·d at "
+              f"{peak / 1e12:.0f} TFLOP/s){extra}  exp floor {exp_floor:.4f} ms  "
               f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd (fwd+bwd − fwd)'} "
               f"{rec['library_ms']:.4f} ms")
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     print(f"  whole backward {list(shape)} {type_name}: kernels "
           f"{this['flash_bwd_dkv']['ms'] + this['flash_bwd_dq']['ms']:.4f} ms  bound "
           f"{10 * bhn2d / peak * 1e3:.4f} ms (10·B·H·N²·d)  SDPA "
@@ -528,29 +629,31 @@ def time_flash(torch, fa, F, shape, dtype, errs):
 
 
 # The tensor-core kernels that must not spill or serialize their wgmma:
-# dQ at the SD UNet's two head dims.
+# the bf16 dQ and the fp32 forward at the SD UNet's two head dims.
 SM90_CLEAN = ("flash::sm90::dq_kernel<40>", "flash::sm90::dq_kernel<80>")
+TF32X3_CLEAN = ("flash::tf32x3::fwd_kernel<40>", "flash::tf32x3::fwd_kernel<80>")
 
 
-def sm90_name(mangled):
-    """``flash::sm90::<kernel><D>`` for the mangled name of a bf16
-    tensor-core flash kernel (``_ZN5flash4sm90…``), else None."""
-    m = re.match(r"_ZN5flash4sm90(\d+)", mangled)
+def flash_kernel_name(mangled):
+    """``flash::sm90::<kernel><D>`` or ``flash::tf32x3::<kernel><D>`` for
+    the mangled name of a tensor-core flash kernel (``_ZN5flash4sm90…``,
+    ``_ZN5flash6tf32x3…``), else None."""
+    m = re.match(r"_ZN5flash(4sm90|6tf32x3)(\d+)", mangled)
     if m is None:
         return None
-    n, rest = int(m.group(1)), mangled[m.end():]
+    ns, n, rest = m.group(1)[1:], int(m.group(2)), mangled[m.end():]
     d = re.match(r"ILi(\d+)E", rest[n:])
-    return f"flash::sm90::{rest[:n]}" + (f"<{d.group(1)}>" if d else "")
+    return f"flash::{ns}::{rest[:n]}" + (f"<{d.group(1)}>" if d else "")
 
 
 def ptxas_report(log):
-    """{kernel: {"registers", "spill_bytes", "warnings"}} of the bf16
-    tensor-core flash kernels, from ptxas' -v output in the build log."""
+    """{kernel: {"registers", "spill_bytes", "warnings"}} of the tensor-core
+    flash kernels, from ptxas' -v output in the build log."""
     report, fn = {}, None
     for line in log.splitlines():
         named = re.search(r"(?:entry function|Function properties for|the function) '?(_Z\w+)", line)
         if named:
-            fn = sm90_name(named.group(1))
+            fn = flash_kernel_name(named.group(1))
             if fn is not None:
                 report.setdefault(fn, {"registers": None, "spill_bytes": 0, "warnings": []})
         if fn is None:
@@ -566,7 +669,8 @@ def ptxas_report(log):
 
 def check_ptxas(log):
     """Print each tensor-core kernel's registers, spills and C75xx
-    warnings; raise if one of SM90_CLEAN spills or serializes its wgmma."""
+    warnings; raise if one of SM90_CLEAN or TF32X3_CLEAN spills or
+    serializes its wgmma."""
     report = ptxas_report(log)
     for line in log.splitlines():
         if "(C75" in line:
@@ -574,7 +678,7 @@ def check_ptxas(log):
     for fn, r in sorted(report.items()):
         print(f"  ptxas {fn}: {r['registers']} registers, {r['spill_bytes']} bytes spilled, "
               f"warnings {r['warnings'] or 'none'}")
-    for fn in SM90_CLEAN:
+    for fn in SM90_CLEAN + TF32X3_CLEAN:
         r = report.get(fn)
         if r is None or r["registers"] is None:
             raise AssertionError(f"ptxas reported nothing for {fn}")
@@ -582,31 +686,65 @@ def check_ptxas(log):
             raise AssertionError(f"{fn}: {r['spill_bytes']} bytes spilled, warnings {r['warnings']}")
 
 
+def sass_counts(sass):
+    """{kernel: {opcode: count}} over the SASS of a library, for HGMMA (bf16
+    wgmma), HMMA.1688.F32.TF32 (mma.sync m16n8k8, TF32 operands) and FFMA,
+    with one example line of each; tensor-core flash kernels by
+    ``flash_kernel_name``, others by their mangled names."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = flash_kernel_name(fn) or fn
+            counts[fn] = {"HGMMA": 0, "HMMA.1688.F32.TF32": 0, "FFMA": 0, "examples": {}}
+            continue
+        if fn is None or "*/" not in line:
+            continue
+        text = " ".join(line.split("*/")[1].split())
+        for op in ("HGMMA", "HMMA.1688.F32.TF32", "FFMA"):
+            if re.search(rf"\b{re.escape(op)}\b", text):
+                counts[fn][op] += 1
+                counts[fn]["examples"].setdefault(op, text.split(";")[0])
+    return counts
+
+
 def check_tensor_core_sass(lib_path):
-    """Count HGMMA (wgmma) instructions per kernel in the built library's
-    SASS and print them for the bf16 tensor-core flash kernels; raise if
-    one has none, or if a kernel of SM90_CLEAN is missing."""
+    """From the built library's SASS: every bf16 tensor-core flash kernel
+    runs HGMMA; every fp32 forward ``flash::tf32x3::fwd_kernel<D>`` runs at
+    least 3·D + 24 HMMA with TF32 operands (three per 16 × 8 × 8 block: the
+    3·D of a 64-key tile's O += P·V, which is fully unrolled, and the 24 of
+    at least one 8-deep step of its S = Q·Kᵀ) and fewer FFMA than the 64·D a
+    lane would issue for one key tile's two products on the FMA units; the
+    FMA forward (``flash::fwd_kernel<float, D>``) is gone. Raise otherwise."""
     from siss_tpu_torch.ops import build
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    counts, first, fn = {}, {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            fn = sm90_name(fn) or fn
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
-            first.setdefault(fn, " ".join(line.split("*/")[1].split()) if "*/" in line else line)
-    sm90 = {f: n for f, n in counts.items() if f.startswith("flash::sm90::")}
-    if not sm90 or not all(sm90.values()) or not set(SM90_CLEAN) <= set(sm90):
-        raise AssertionError(f"tensor-core flash kernels without HGMMA in their SASS: {sm90}")
-    for f, n in sorted(sm90.items()):
-        print(f"  SASS {f}: {n} HGMMA, e.g. {first[f]}")
-    others = sum(n for f, n in counts.items() if f not in sm90)
-    print(f"  SASS: {others} HGMMA in the other {len(counts) - len(sm90)} kernels")
+    counts = sass_counts(sass)
+    sm90 = {f: c for f, c in counts.items() if f.startswith("flash::sm90::")}
+    if not sm90 or not all(c["HGMMA"] for c in sm90.values()) or not set(SM90_CLEAN) <= set(sm90):
+        raise AssertionError(f"bf16 tensor-core flash kernels without HGMMA in their SASS: "
+                             f"{ {f: c['HGMMA'] for f, c in sm90.items()} }")
+    for f, c in sorted(sm90.items()):
+        print(f"  SASS {f}: {c['HGMMA']} HGMMA, e.g. {c['examples']['HGMMA']}")
+    tf32 = {f: c for f, c in counts.items() if f.startswith("flash::tf32x3::fwd_kernel<")}
+    if not set(TF32X3_CLEAN) <= set(tf32):
+        raise AssertionError(f"the fp32 forward kernels are missing from the SASS: {sorted(tf32)}")
+    for f, c in sorted(tf32.items()):
+        D = int(f[f.index("<") + 1:-1])
+        hmma, ffma = c["HMMA.1688.F32.TF32"], c["FFMA"]
+        print(f"  SASS {f}: {hmma} HMMA.1688.F32.TF32 (at least {3 * D + 24}), {ffma} FFMA "
+              f"(under {64 * D}), e.g. {c['examples'].get('HMMA.1688.F32.TF32')}")
+        if hmma < 3 * D + 24 or ffma >= 64 * D:
+            raise AssertionError(f"{f}: {hmma} TF32 HMMA (at least {3 * D + 24} expected) and "
+                                 f"{ffma} FFMA (under {64 * D} expected)")
+    fma_fwd = [f for f in counts if f.startswith("_ZN5flash10fwd_kernelIf")]
+    if fma_fwd:
+        raise AssertionError(f"the FMA forward is still built: {fma_fwd}")
+    others = {f: c for f, c in counts.items() if f not in sm90 and f not in tf32}
+    print(f"  SASS: {sum(c['HGMMA'] + c['HMMA.1688.F32.TF32'] for c in others.values())} HGMMA "
+          f"or TF32 HMMA in the other {len(others)} kernels; no FMA forward")
 
 
 def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, shape, cond=None):
@@ -649,7 +787,9 @@ def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, sh
 
 
 def phase_tiny_step_parity(torch):
-    """The tiny celeb-like step, then the tiny SD step, card against CPU."""
+    """The tiny celeb-like step, then the tiny SD step, card against CPU;
+    the latter's card launch counts: the one path that runs the fp32 flash
+    kernels."""
     import dataclasses
 
     from siss_tpu_torch.diffusion import NoiseSchedule, sd_noise_schedule
@@ -677,6 +817,7 @@ def phase_tiny_step_parity(torch):
         (16, 16, 4), cond=(7, cond_cfg.cross_attention_dim))
     if not all(counts[k] > 0 for k in FLASH_OPS):
         raise AssertionError(f"the tiny SD step on the card did not run every flash kernel: {counts}")
+    return counts
 
 
 def drive_path(torch, name, make, steps, per_step, images_per_step):
@@ -893,17 +1034,20 @@ def main() -> int:
 
     record = phase_kernels(torch)
     record.update(phase_flash_kernels(torch))
-    phase_tiny_step_parity(torch)
+    fp32_counts = phase_tiny_step_parity(torch)
     phase_tshirt(torch, card)
     celeb_counts = phase_main_path(torch)
     sd_counts = phase_sd_path(torch)
 
-    # Launches: the SISS kernels' from the celeb path, the flash kernels'
-    # from the SD path (the SISS kernels' SD counts are printed above).
-    counts = {**celeb_counts, **{k: sd_counts[k] for k in FLASH_OPS}}
+    # Launches: the SISS kernels' from the celeb path, the bf16 flash
+    # kernels' from the SD path (the SISS kernels' SD counts are printed
+    # above), the fp32 forward's from the tiny SD step in fp32 on the card.
+    counts = {**celeb_counts, **{k: sd_counts[k] for k in FLASH_OPS},
+              "flash_fwd_fp32": fp32_counts["flash_fwd"]}
     sources = {"siss_reduce": ("siss_tpu_torch/ops/csrc/siss_reduce.cu", "siss_tpu/ops/siss_pallas.py:55"),
                "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120"),
                "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
+               "flash_fwd_fp32": ("siss_tpu_torch/ops/csrc/flash_fwd_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
                "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
                "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],

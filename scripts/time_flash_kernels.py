@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's bf16 flash-attention kernels at the SD
-UNet's two shapes, for the ``siss_tpu_torch`` package of any checkout.
+"""Time the PyTorch/CUDA port's flash-attention kernels at the SD UNet's
+two shapes, for the ``siss_tpu_torch`` package of any checkout.
 
     python3 scripts/time_flash_kernels.py [--root CHECKOUT] [--label NAME]
+                                          [--dtype bfloat16|float32]
 
 Imports ``siss_tpu_torch`` from CHECKOUT (default: this repository), builds
 its kernels there, and prints one JSON line: the card, and the median
 device ms of one launch of flash_fwd, flash_bwd_dkv and flash_bwd_dq at
-(B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) in bf16, operands in
-the UNet's [B, N, H, d] layout, timed as ``chip_smoke.py`` times them (CUDA
-events over 20-launch batches, the device kept ahead of the host), and
-ptxas' registers, spills and C75xx warnings for the tensor-core kernels at
-those head dims. To compare two checkouts on one card, run it for each in
-turns (A, B, B, A) in one command.
+(B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) in the given type
+(default bf16), operands in the UNet's [B, N, H, d] layout, timed as
+``chip_smoke.py`` times them (CUDA events over 20-launch batches, the
+device kept ahead of the host), and ptxas' registers, spills and C75xx
+warnings for the tensor-core kernels at those head dims; in fp32 also the
+forward's largest error against a float64 reference beside the fp32 plain
+version's (``chip_smoke.float64_errors``). To compare two
+checkouts on one card, run it for each in turns (A, B, B, A) in one
+command; the parent of a change can be unpacked with ``git archive`` into
+a git-ignored directory for that.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=REPO, help="checkout whose siss_tpu_torch to time")
     ap.add_argument("--label", default=None, help="name for the JSON line (default: the root)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the operands' type (default bfloat16)")
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -48,15 +55,19 @@ def main() -> int:
     from siss_tpu_torch.ops import flash_attention as fa
 
     build.load()
-    times = {}
+    dtype = getattr(torch, args.dtype)
+    times, float64 = {}, {}
     for shape in SHAPES:
         B, H, N, d = shape
         gen = torch.Generator(device="cuda").manual_seed(7)
         q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
-                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+                       .to(dtype).transpose(1, 2) for _ in range(4))
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_fwd(q, k, v, scale)
         di = fa.row_dot(o, do)
+        if dtype == torch.float32:
+            float64[str(list(shape))] = smoke.float64_errors(
+                torch, q, k, v, scale, o, lse, *fa.flash_attention_plain(q, k, v, scale))
         fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, scale),
                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
                "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale)}
@@ -64,8 +75,9 @@ def main() -> int:
             times[f"{name} {list(shape)}"] = statistics.median(smoke.gpu_ms(torch, fn))
     ptxas = {fn: r for fn, r in smoke.ptxas_report(build.build_info["log"]).items()
              if fn.endswith(("<40>", "<80>"))}
-    print(json.dumps({"label": args.label or str(args.root), "card": smoke.card_line(),
-                      "build_s": build.build_info["seconds"], "ms": times, "ptxas": ptxas}))
+    print(json.dumps({"label": args.label or str(args.root), "dtype": args.dtype,
+                      "card": smoke.card_line(), "build_s": build.build_info["seconds"],
+                      "ms": times, "ptxas": ptxas, "fwd_float64_err_vs_plain": float64}))
     return 0
 
 

@@ -1,7 +1,7 @@
 // Flash attention, forward, bf16, on Hopper's tensor cores: O = softmax(Q
 // K^T * scale) V and lse = m + log(l) per row. flash_fwd (flash_fwd.cu)
-// launches this kernel for bf16 operands; fp32 operands keep the FMA kernel
-// there, since tensor cores would mean TF32.
+// launches this kernel for bf16 operands, and the 3xTF32 kernel of
+// flash_fwd_tf32x3.cu for fp32 operands.
 //
 // Replaces the Pallas TPU kernel _flash_attention_kernel of
 // jax/experimental/pallas/ops/tpu/flash_attention.py (launched by

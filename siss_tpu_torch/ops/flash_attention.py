@@ -13,9 +13,12 @@ CUDA C++ for sm_90a, carry it on the card:
 Each C entry point dispatches on the operands' type (``kernel_impl``): bf16
 runs on the tensor cores (``wgmma``, with TMA tile copies:
 ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``,
-``csrc/flash_bwd_dq_sm90.cu``); fp32 runs on fp32 FMAs (``fma``:
-``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), since tensor cores would
-round fp32 to TF32.
+``csrc/flash_bwd_dq_sm90.cu``). The fp32 forward runs on the tensor cores
+too (``tf32x3``: ``csrc/flash_fwd_tf32x3.cu``, ``mma.sync`` with each
+operand split into two TF32 parts and each product issued three times, so
+the products keep fp32 accuracy; ``split_tf32`` and
+``flash_attention_tf32x3_emulated`` model its arithmetic). The fp32 dK/dV
+and dQ run on fp32 FMAs (``fma``: ``csrc/flash_bwd.cu``).
 
 Each has a plain PyTorch version beside it (``flash_attention_plain``,
 ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``; ``flash_attention_bwd_plain``
@@ -48,7 +51,7 @@ _HEAD_DIMS = (8, 16, 40, 64, 80, 128)
 # The sequence length must be a multiple of every block's row count.
 _SEQ_MULTIPLE = 128
 # What each C entry point runs for each operand type.
-_IMPLS = {"flash_fwd": {torch.float32: "fma", torch.bfloat16: "wgmma"},
+_IMPLS = {"flash_fwd": {torch.float32: "tf32x3", torch.bfloat16: "wgmma"},
           "flash_bwd_dkv": {torch.float32: "fma", torch.bfloat16: "wgmma"},
           "flash_bwd_dq": {torch.float32: "fma", torch.bfloat16: "wgmma"}}
 
@@ -109,6 +112,102 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale):
     return flash_bwd_dq_plain(q, k, v, lse, do, di, scale), dk, dv
 
 
+# --- models of the 3xTF32 kernel's arithmetic -------------------------------
+
+def split_tf32(x):
+    """(hi, lo) of fp32 ``x`` as the 3xTF32 kernel's ``split`` forms them,
+    bit for bit: hi = rna(x) and lo = rna(x − hi), where rna rounds to TF32
+    (10 mantissa bits, the low 13 bits of the fp32 pattern zero) to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32`` does. The kernel rounds
+    hi by integer operations on the bits (sign and magnitude: add half a
+    TF32 ulp, 0x1000, and clear the low 13 bits; a carry moves into the
+    exponent as it should, and subnormals round the same way), which gives
+    cvt's bits for every x but NaN (at padded head dim 80 it rounds hi by
+    cvt too), and lo by cvt itself. x − hi is exact in fp32, so
+    |x − hi − lo| ≤ 2⁻²²·|x|. ±inf gives hi = ±inf and lo = NaN
+    (inf − inf); a NaN gives lo = NaN, so the products stay NaN, whatever hi
+    its bits round to (a NaN with the top mantissa bits set rounds to ∓0).
+    An inf or NaN operand makes its rows NaN in the plain version too."""
+    x = x.float()
+    hi = _rna_bits(x)
+    r = x - hi
+    return hi, torch.where(torch.isnan(r), r, _rna_bits(r))
+
+
+def _rna_bits(x):
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3_steps(acc, a, b, chained=False):
+    """acc + a·b as the kernel forms it: over the contraction in 8-deep
+    k-steps (``mma.sync`` m16n8k8), each step's a_lo·b_hi, a_hi·b_lo and then
+    a_hi·b_hi, small terms first (lo·lo is dropped), summed into a zeroed
+    accumulator and added to acc in fp32 (``mma3_add``), or with ``chained``
+    added to acc one product at a time (``mma3``). Each product of TF32
+    parts is exact in fp32; the sum inside a product is the tensor core's
+    there and torch's here."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        step = acc if chained else 0.0
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            step = step + torch.matmul(x[..., ks], y[..., ks, :])
+        acc = step if chained else acc + step
+    return acc
+
+
+def flash_attention_tf32x3_emulated(q, k, v, scale, keys_per_tile=64):
+    """A plain model of the fp32 3xTF32 forward kernel's arithmetic: (o,
+    lse) fp32. Per tile of ``keys_per_tile`` keys: S = Q·Kᵀ from split
+    operands (``_mm3_steps``), scaled; the running row max m, rescale
+    α = exp(m_old − m), P = exp(S − m), the row sum l = l·α + ΣP; O = O·α +
+    P·V from split P and V. At padded head dims 64 and 80 the kernel sums a
+    tile's P·V in one fresh accumulator before adding it to O, and runs two
+    key groups, each over its half of the keys, merged at the end: m =
+    max(m₀, m₁), l and O as l₀·e^(m₀−m) + l₁·e^(m₁−m). Then o = O / l,
+    lse = m + log l. For the tests and ``chip_smoke.py``; nothing on the
+    port's path calls it."""
+    with torch.autocast(q.device.type, enabled=False):
+        q, k, v = (t.float() for t in (q, k, v))
+        d, N = q.shape[-1], k.shape[-2]
+        pad = (0, -d % 8)  # the kernel's padded head dim: zeros add nothing
+        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+        groups = 2 if padded_head_dim(d) in (64, 80) else 1
+        parts = [_online_softmax_pv(q, k[..., n0:n0 + N // groups, :],
+                                    v[..., n0:n0 + N // groups, :], scale, keys_per_tile,
+                                    pv_per_tile=groups == 2)
+                 for n0 in range(0, N, N // groups)]
+        m, l, acc = parts[0]
+        if groups == 2:
+            m1, l1, acc1 = parts[1]
+            m_new = torch.maximum(m, m1)
+            a0, a1 = torch.exp(m - m_new), torch.exp(m1 - m_new)
+            l, acc, m = l * a0 + l1 * a1, acc * a0[..., None] + acc1 * a1[..., None], m_new
+        return (acc / l[..., None])[..., :d], m + torch.log(l)
+
+
+def _online_softmax_pv(q, k, v, scale, keys_per_tile, pv_per_tile):
+    """One key group's pass of the kernel: (m, l, unnormalised O)."""
+    rows = q.shape[:-1]
+    m = torch.full(rows, -torch.inf, device=q.device)
+    l = torch.zeros(rows, device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for n0 in range(0, k.shape[-2], keys_per_tile):
+        kt, vt = k[..., n0:n0 + keys_per_tile, :], v[..., n0:n0 + keys_per_tile, :]
+        s = _mm3_steps(0.0, q, kt.transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if pv_per_tile:
+            acc = acc * alpha[..., None] + _mm3_steps(torch.zeros_like(acc), p, vt, chained=True)
+        else:
+            acc = _mm3_steps(acc * alpha[..., None], p, vt)
+        m = m_new
+    return m, l, acc
+
+
 # --- kernel wrappers -------------------------------------------------------
 
 def padded_head_dim(d: int) -> int:
@@ -120,7 +219,8 @@ def padded_head_dim(d: int) -> int:
 
 def kernel_impl(name: str, dtype: torch.dtype) -> str:
     """Which kernel the C entry point ``name`` launches for ``dtype``
-    operands: "wgmma" (bf16 tensor cores) or "fma" (fp32 FMAs)."""
+    operands: "wgmma" (bf16 tensor cores), "tf32x3" (fp32 on the tensor
+    cores, three TF32 products each) or "fma" (fp32 FMAs)."""
     return _IMPLS[name][dtype]
 
 

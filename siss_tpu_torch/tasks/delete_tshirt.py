@@ -16,6 +16,7 @@ boundary crossings as in the JAX package.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -143,15 +144,22 @@ class DeleteTShirt(Task):
         steps_per_call = max(int(cfg.get("steps_per_call", 1) or 1), 1)
         guard = PreemptionGuard().install()
         global_step = start_step
+        t_last = time.time()
         while global_step < training_steps:
             if guard.should_stop:
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
                 print(f"[preemption] saved checkpoint-{global_step}; exiting")
                 break
             k_done = min(steps_per_call, training_steps - global_step)
-            for i in range(k_done):
-                metrics = self.timed(self.step_seconds, one_step)
-                metrics["images_per_sec"] = bs * accum / self.step_seconds[-1]
+            per_step = [self.timed(self.step_seconds, one_step) for _ in range(k_done)]
+            # images_per_sec as the JAX task defines it: the pass's images over
+            # the wall time since the previous pass ended, which holds that
+            # pass's evaluation and checkpoint. step_seconds keeps each step's
+            # synchronised time alone.
+            now = time.time()
+            dt, t_last = now - t_last, now
+            for i, metrics in enumerate(per_step):
+                metrics["images_per_sec"] = k_done * bs * accum / dt
                 tracker.log(metrics, step=global_step + i + 1)
             prev_step, global_step = global_step, global_step + k_done
             if int(cfg.sampling_steps) and boundary_crossed(prev_step, global_step,

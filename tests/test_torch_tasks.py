@@ -127,6 +127,42 @@ def test_cli_pretrain_then_delete_handoff(npz, base_run, tmp_path):
     assert json.load(open(os.path.join(out, "config.json")))["deletion"]["scaling_norm"] == 5
 
 
+def test_images_per_sec_is_the_jax_wall_rate(npz, base_run, tmp_path, monkeypatch):
+    """images_per_sec as the JAX task defines it (siss_tpu/tasks/delete_tshirt.py:
+    251, 295-298): a pass's k_done·bs·accum images over the wall time since
+    the previous pass ended, so the evaluation after a pass counts in the next
+    one. On a patched clock each read advances 1 s and each evaluation 100 s;
+    steps_per_call=2 over 5 steps runs passes of 2, 2 and 1 steps, with
+    evaluations at steps 0, 2 and 4."""
+    from types import SimpleNamespace
+
+    from siss_tpu_torch.evaluate import Evaluator
+    from siss_tpu_torch.tasks import delete_tshirt
+
+    clock = [0.0]
+
+    def read():
+        clock[0] += 1.0
+        return clock[0]
+
+    sample = Evaluator.sample_images
+
+    def slow_sample(self, *args, **kwargs):
+        clock[0] += 100.0
+        return sample(self, *args, **kwargs)
+
+    monkeypatch.setattr(delete_tshirt, "time", SimpleNamespace(time=read))
+    monkeypatch.setattr(Evaluator, "sample_images", slow_sample)
+    (task,) = cli.main(delete_args(npz, tmp_path, base_run, "training_steps=5",
+                                   "steps_per_call=2"))
+    images = int(task.cfg.train_batch_size) * int(task.cfg.gradient_accumulation_steps)
+    rows = [r for r in rows_of(str(task.cfg.output_dir)) if "loss_x/mean" in r]
+    assert [r["_step"] for r in rows] == [1, 2, 3, 4, 5]
+    assert [r["images_per_sec"] for r in rows] == pytest.approx(
+        [2 * images / 1, 2 * images / 1, 2 * images / 101, 2 * images / 101, images / 101])
+    assert len(task.step_seconds) == 5 and all(0 < s < 100 for s in task.step_seconds)
+
+
 def test_delete_starts_from_unet_ema(npz, base_run, tmp_path):
     (task,) = cli.main(delete_args(npz, tmp_path, base_run, "training_steps=0",
                                    "sampling_steps=0"))
