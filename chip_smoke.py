@@ -12,11 +12,12 @@ prints no result):
    (C75xx) for each tensor-core flash kernel (bf16 ``flash::sm90::``, fp32
    ``flash::tf32x3::``), and fail if ``flash::sm90::dq_kernel<40>`` or
    ``<80>`` (the SD shapes' dQ) spills or serializes, or if
-   ``flash::tf32x3::fwd_kernel<40>`` or ``<80>`` spills; show from the
-   library's SASS (cuobjdump) that every bf16 kernel runs HGMMA (wgmma) and
-   every fp32 forward runs HMMA with TF32 operands (mma.sync m16n8k8) for
-   both of a key tile's products, with fewer FFMA than one key tile would
-   need on the FMA units, and that the FMA forward is gone.
+   ``flash::tf32x3::fwd_kernel<40>``, ``<80>``, ``dkv_kernel<40>`` or
+   ``<80>`` spills; show from the library's SASS (cuobjdump) that every
+   bf16 kernel runs HGMMA (wgmma), that every fp32 forward and every fp32
+   dK/dV runs HMMA with TF32 operands (mma.sync m16n8k8) for all of its
+   products, with fewer FFMA than one key (or query) tile would need on the
+   FMA units, and that the FMA forward and FMA dK/dV are gone.
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
@@ -37,17 +38,18 @@ prints no result):
    contiguous [B, H, N, d] operands: every element within its bound, and
    in bf16 the RMS error within its bound too. Each case prints which
    kernel ran for each (kernel, type): ``wgmma``, ``tf32x3`` or ``fma``.
-   lse, o and dq must repeat bit for bit; the autograd.Function must give
-   the kernels' gradients; a shape the kernels cannot take, and a bf16
-   operand that breaks TMA's 16-byte rule, must raise. At the SD shapes the
-   fp32 forward's largest error against a float64 reference (the plain
-   version's formula in float64) must be at most twice the fp32 plain
-   version's own, in o and in lse, and it must agree with
-   ``flash_attention_tf32x3_emulated``, the plain model of its arithmetic,
+   lse, o, dk, dv and dq must repeat bit for bit; the autograd.Function
+   must give the kernels' gradients; a shape the kernels cannot take, and a
+   bf16 operand that breaks TMA's 16-byte rule, must raise. At the SD
+   shapes the fp32 forward's and the fp32 dK/dV's largest errors against a
+   float64 reference (the plain versions' formulas in float64) must be at
+   most twice the fp32 plain versions' own, in o and lse, and in dk and
+   dv, and each must agree with the plain model of its arithmetic
+   (``flash_attention_tf32x3_emulated``, ``flash_bwd_dkv_tf32x3_emulated``)
    within the same bound. Then time kernel, plain version and PyTorch's
    scaled_dot_product_attention at the SD shapes, in bf16 and in fp32 (SDPA
-   with TF32 off; the fp32 forward's bound at the TF32 rate for its three
-   products, beside the 67 TFLOP/s FMA bound). The fp32 dQ at
+   with TF32 off; the 3xTF32 kernels' bounds at the TF32 rate for their
+   three products, beside the 67 TFLOP/s FMA bound). The fp32 dQ at
    (1, 8, 4096, 40) is timed in three rounds spread over the phase, each
    with the SM clock, power draw and temperature that nvidia-smi sampled
    during it.
@@ -80,7 +82,8 @@ prints no result):
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
 kernel's launches on the path that runs it (the bf16 flash kernels on the
-SD path, the fp32 forward, ``flash_fwd_fp32``, on phase 5's tiny SD step),
+SD path, the fp32 forward and dK/dV, ``flash_fwd_fp32`` and
+``flash_bwd_dkv_fp32``, on phase 5's tiny SD step),
 its times at the heaviest SD site and its error; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -121,6 +124,9 @@ FLASH_SHAPES = FLASH_SD_SHAPES + ((2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 
 FLASH_OPS = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
 # Tensor-core products per product of the 3xTF32 kernels (lo·hi, hi·lo, hi·hi).
 TF32X3_PASSES = 3
+# Peak rate and products per product of each flash kernel_impl.
+FLASH_PEAKS = {"wgmma": (H100_BF16_FLOPS, 1), "tf32x3": (H100_TF32_FLOPS, TF32X3_PASSES),
+               "fma": (H100_FP32_FLOPS, 1)}
 
 
 def card_line() -> str:
@@ -386,16 +392,20 @@ def check_flash_case(torch, shape, dtype, seed, contiguous=False):
     o2, lse2 = fa.flash_fwd(q, k, v, scale)
     di = fa.row_dot(o, do)
     dk, dv = fa.flash_bwd_dkv(q, k, v, lse, do, di, scale)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, lse, do, di, scale)
     dq = fa.flash_bwd_dq(q, k, v, lse, do, di, scale)
     dq2 = fa.flash_bwd_dq(q, k, v, lse, do, di, scale)
     torch.cuda.synchronize()
     launched = {key: launch_counts[key] - before[key] for key in FLASH_OPS}
-    if launched != {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}:
+    if launched != {"flash_fwd": 2, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}:
         raise AssertionError(f"flash {name}: the wrappers did not launch the kernels: {launched}")
     if not (torch.equal(lse, lse2) and torch.equal(o, o2)):
         raise AssertionError(f"flash {name}: the forward kernel did not repeat bit for bit")
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"flash {name}: the dK/dV kernel did not repeat bit for bit")
     if not torch.equal(dq, dq2):
         raise AssertionError(f"flash {name}: the dQ kernel did not repeat bit for bit")
+    del dk2, dv2
     impls = {key: fa.kernel_impl(key, dtype) for key in FLASH_OPS}
 
     o_p, lse_p = fa.flash_attention_plain(q, k, v, scale)
@@ -436,6 +446,7 @@ def check_flash_case(torch, shape, dtype, seed, contiguous=False):
 
     if dtype == torch.float32 and shape in FLASH_SD_SHAPES:
         check_fp32_forward(torch, fa, name, q, k, v, scale, o, lse, o_p, lse_p, terms, N)
+        check_fp32_dkv(torch, fa, name, q, k, v, lse, do, di, scale, dk, dv, dk_p, dv_p, terms, N)
 
     # The autograd.Function on the card: the same kernels, so the same bits.
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -484,6 +495,46 @@ def check_fp32_forward(torch, fa, name, q, k, v, scale, o, lse, o_p, lse_p, term
           f"against its emulated arithmetic: o max_abs_err={emu_err:.3e}")
 
 
+def float64_dkv_errors(torch, q, k, v, lse, do, di, scale, dk, dv, dk_p, dv_p):
+    """{"dk": (kernel's, plain version's), "dv": (…)}: the largest |error|
+    of each against flash_bwd_dkv_plain's formula in float64, from the same
+    lse and di cast to float64."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse.double()[..., None])
+    ds = (torch.matmul(do, v.transpose(-1, -2)) - di.double()[..., None]) * p * scale
+    dv64 = torch.matmul(p.transpose(-1, -2), do)
+    del p
+    dk64 = torch.matmul(ds.transpose(-1, -2), q)
+    del ds
+    return {label: tuple(float((t.double() - ref).abs().max()) for t in (got, plain))
+            for label, got, plain, ref in (("dk", dk, dk_p, dk64), ("dv", dv, dv_p, dv64))}
+
+
+def check_fp32_dkv(torch, fa, name, q, k, v, lse, do, di, scale, dk, dv, dk_p, dv_p, terms, N):
+    """The fp32 (3xTF32) dK/dV beyond flash_bound, as check_fp32_forward
+    holds the forward: its largest float64 error in dk and in dv at most
+    twice the fp32 plain version's, and agreement with
+    flash_bwd_dkv_tf32x3_emulated, the plain model of its arithmetic,
+    within flash_bound."""
+    ratios = []
+    for label, (err, plain_err) in float64_dkv_errors(torch, q, k, v, lse, do, di, scale, dk, dv,
+                                                      dk_p, dv_p).items():
+        if not err <= 2 * plain_err:
+            raise AssertionError(f"flash {name} {label}: float64 error {err:.3e}, more than twice "
+                                 f"the fp32 plain version's {plain_err:.3e}")
+        ratios.append(f"{label} {err:.3e} vs plain {plain_err:.3e} ({err / plain_err:.2f}x)")
+    dk_e, dv_e = fa.flash_bwd_dkv_tf32x3_emulated(q, k, v, lse, do, di, scale)
+    emu_errs = []
+    for label, got, want in (("dk", dk, dk_e), ("dv", dv, dv_e)):
+        if not bool(((got - want).abs() <= flash_bound(torch, want, terms[label], torch.float32,
+                                                         N)).all()):
+            raise AssertionError(f"flash {name} {label}: the kernel and its emulated arithmetic "
+                                 f"differ beyond flash_bound")
+        emu_errs.append(f"{label} max_abs_err={float((got - want).abs().max()):.3e}")
+    print(f"flash check {name} fp32 dK/dV against float64: {'; '.join(ratios)}; "
+          f"against its emulated arithmetic: {', '.join(emu_errs)}")
+
+
 def phase_flash_kernels(torch):
     import torch.nn.functional as F
 
@@ -518,15 +569,17 @@ def phase_flash_kernels(torch):
 
     dq_rounds.append(dq_round(torch, fa, "after the checks"))
     # Timing at the SD shapes in bf16 (the main path's type), then in fp32
-    # (the 3xTF32 forward and the FMA backward, against SDPA in fp32 with
-    # TF32 off). The JSON record holds each kernel at the 64×64-latent
-    # sites, the SD step's heaviest: bf16, and the fp32 forward beside it.
+    # (the 3xTF32 forward and dK/dV and the FMA dQ, against SDPA in fp32
+    # with TF32 off). The JSON record holds each kernel at the 64×64-latent
+    # sites, the SD step's heaviest: bf16, and the fp32 forward and dK/dV
+    # beside it.
     times = {(shape, dtype): time_flash(torch, fa, F, shape, dtype, errs[shape, dtype])
              for dtype in (torch.bfloat16, torch.float32) for shape in FLASH_SD_SHAPES}
     dq_rounds.append(dq_round(torch, fa, "after the timing"))
     print("fp32 dQ (fma) [1, 8, 4096, 40] by round: " + "; ".join(dq_rounds))
     record = dict(times[FLASH_SD_SHAPES[0], torch.bfloat16])
-    record["flash_fwd_fp32"] = times[FLASH_SD_SHAPES[0], torch.float32]["flash_fwd"]
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        record[f"{name}_fp32"] = times[FLASH_SD_SHAPES[0], torch.float32][name]
     return record
 
 
@@ -563,9 +616,9 @@ def time_flash(torch, fa, F, shape, dtype, errs):
     """Kernel, plain version (in turns: plain, kernel, kernel, plain) and
     SDPA's forward and forward + backward at one shape and type; the bound
     from the bytes and the matrix products at the rate of the units the
-    kernel runs them on: bf16 tensor cores; for the fp32 forward the TF32
-    tensor cores, three products each (3xTF32); for the fp32 backward the
-    fp32 FMA units."""
+    kernel runs them on (``FLASH_PEAKS`` by ``kernel_impl``): bf16 tensor
+    cores; for the fp32 forward and dK/dV the TF32 tensor cores, three
+    products each (3xTF32); for the fp32 dQ the fp32 FMA units."""
     B, H, N, d = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
@@ -593,14 +646,18 @@ def time_flash(torch, fa, F, shape, dtype, errs):
               "flash_bwd_dkv": 6 * elems * esize + 2 * B * H * N * 4,
               "flash_bwd_dq": 5 * elems * esize + 2 * B * H * N * 4}
     type_name = str(dtype)[6:]
+
+    def ops_ms(name):  # the matrix products' time at the peak of the units that run them
+        peak, passes = FLASH_PEAKS[fa.kernel_impl(name, dtype)]
+        return passes * FLASH_OPS[name] * bhn2d / peak * 1e3
+
     this = {}
     for name, (kernel, plain) in fns.items():
         impl = fa.kernel_impl(name, dtype)
-        peak, passes = {"wgmma": (H100_BF16_FLOPS, 1), "tf32x3": (H100_TF32_FLOPS, TF32X3_PASSES),
-                        "fma": (H100_FP32_FLOPS, 1)}[impl]
+        peak, passes = FLASH_PEAKS[impl]
         p1, k1, k2, p2 = (gpu_ms(torch, f) for f in (plain, kernel, kernel, plain))
         t_bytes = nbytes[name] / H100_BYTES_PER_S * 1e3
-        t_ops = passes * FLASH_OPS[name] * bhn2d / peak * 1e3
+        t_ops = ops_ms(name)
         rec = dict(impl=impl, max_abs_err=errs[name],
                    ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
                    bound_ms=max(t_bytes, t_ops),
@@ -620,18 +677,24 @@ def time_flash(torch, fa, F, shape, dtype, errs):
               f"{peak / 1e12:.0f} TFLOP/s){extra}  exp floor {exp_floor:.4f} ms  "
               f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd (fwd+bwd − fwd)'} "
               f"{rec['library_ms']:.4f} ms")
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    # The two backward kernels' own operation bounds, each by its impl,
+    # beside one kernel's 10·B·H·N²·d at the rate of the dK/dV's units.
+    bwd = ("flash_bwd_dkv", "flash_bwd_dq")
+    peak, passes = FLASH_PEAKS[this["flash_bwd_dkv"]["impl"]]
     print(f"  whole backward {list(shape)} {type_name}: kernels "
-          f"{this['flash_bwd_dkv']['ms'] + this['flash_bwd_dq']['ms']:.4f} ms  bound "
-          f"{10 * bhn2d / peak * 1e3:.4f} ms (10·B·H·N²·d)  SDPA "
-          f"{sdpa_all - sdpa_fwd:.4f} ms")
+          f"{sum(this[n]['ms'] for n in bwd):.4f} ms  bound "
+          f"{sum(ops_ms(n) for n in bwd):.4f} ms (sum of the kernels' own: "
+          + " + ".join(f"{this[n]['impl']} {ops_ms(n):.4f}" for n in bwd)
+          + f"); one kernel {passes * 10 * bhn2d / peak * 1e3:.4f} ms (10·B·H·N²·d at "
+          f"{peak / 1e12:.0f} TFLOP/s × {passes})  SDPA {sdpa_all - sdpa_fwd:.4f} ms")
     return this
 
 
 # The tensor-core kernels that must not spill or serialize their wgmma:
-# the bf16 dQ and the fp32 forward at the SD UNet's two head dims.
+# the bf16 dQ and the fp32 forward and dK/dV at the SD UNet's two head dims.
 SM90_CLEAN = ("flash::sm90::dq_kernel<40>", "flash::sm90::dq_kernel<80>")
-TF32X3_CLEAN = ("flash::tf32x3::fwd_kernel<40>", "flash::tf32x3::fwd_kernel<80>")
+TF32X3_CLEAN = ("flash::tf32x3::fwd_kernel<40>", "flash::tf32x3::fwd_kernel<80>",
+                "flash::tf32x3::dkv_kernel<40>", "flash::tf32x3::dkv_kernel<80>")
 
 
 def flash_kernel_name(mangled):
@@ -714,8 +777,15 @@ def check_tensor_core_sass(lib_path):
     least 3·D + 24 HMMA with TF32 operands (three per 16 × 8 × 8 block: the
     3·D of a 64-key tile's O += P·V, which is fully unrolled, and the 24 of
     at least one 8-deep step of its S = Q·Kᵀ) and fewer FFMA than the 64·D a
-    lane would issue for one key tile's two products on the FMA units; the
-    FMA forward (``flash::fwd_kernel<float, D>``) is gone. Raise otherwise."""
+    lane would issue for one key tile's two products on the FMA units; every
+    fp32 dK/dV ``flash::tf32x3::dkv_kernel<D>`` runs at least 3·D + 24 TF32
+    HMMA (a 32-query tile's dV += Pᵀ·dO and dK += dSᵀ·Q, fully unrolled:
+    4 query steps × D/8 n-tiles × 3 each, and at least one 8-deep step of
+    its Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 4 query n-tiles × 3 each) and fewer FFMA
+    than the 64·D a lane would issue for one query tile's four products on
+    the FMA units (16 keys × 32 queries × D × 4 over 32 lanes); the FMA
+    forward (``flash::fwd_kernel<float, D>``) and FMA dK/dV
+    (``flash::dkv_kernel<float, D>``) are gone. Raise otherwise."""
     from siss_tpu_torch.ops import build
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -728,23 +798,27 @@ def check_tensor_core_sass(lib_path):
                              f"{ {f: c['HGMMA'] for f, c in sm90.items()} }")
     for f, c in sorted(sm90.items()):
         print(f"  SASS {f}: {c['HGMMA']} HGMMA, e.g. {c['examples']['HGMMA']}")
-    tf32 = {f: c for f, c in counts.items() if f.startswith("flash::tf32x3::fwd_kernel<")}
+    tf32 = {f: c for f, c in counts.items() if f.startswith("flash::tf32x3::")}
     if not set(TF32X3_CLEAN) <= set(tf32):
-        raise AssertionError(f"the fp32 forward kernels are missing from the SASS: {sorted(tf32)}")
+        raise AssertionError(f"fp32 tensor-core kernels are missing from the SASS: {sorted(tf32)}")
+    # Per kernel: (HMMA floor, FFMA ceiling) at head dim D.
+    floors = {"fwd_kernel": lambda D: (3 * D + 24, 64 * D),
+              "dkv_kernel": lambda D: (3 * D + 24, 64 * D)}
     for f, c in sorted(tf32.items()):
         D = int(f[f.index("<") + 1:-1])
+        least, most = floors[f[len("flash::tf32x3::"):f.index("<")]](D)
         hmma, ffma = c["HMMA.1688.F32.TF32"], c["FFMA"]
-        print(f"  SASS {f}: {hmma} HMMA.1688.F32.TF32 (at least {3 * D + 24}), {ffma} FFMA "
-              f"(under {64 * D}), e.g. {c['examples'].get('HMMA.1688.F32.TF32')}")
-        if hmma < 3 * D + 24 or ffma >= 64 * D:
-            raise AssertionError(f"{f}: {hmma} TF32 HMMA (at least {3 * D + 24} expected) and "
-                                 f"{ffma} FFMA (under {64 * D} expected)")
-    fma_fwd = [f for f in counts if f.startswith("_ZN5flash10fwd_kernelIf")]
-    if fma_fwd:
-        raise AssertionError(f"the FMA forward is still built: {fma_fwd}")
+        print(f"  SASS {f}: {hmma} HMMA.1688.F32.TF32 (at least {least}), {ffma} FFMA "
+              f"(under {most}), e.g. {c['examples'].get('HMMA.1688.F32.TF32')}")
+        if hmma < least or ffma >= most:
+            raise AssertionError(f"{f}: {hmma} TF32 HMMA (at least {least} expected) and "
+                                 f"{ffma} FFMA (under {most} expected)")
+    fma = [f for f in counts if f.startswith(("_ZN5flash10fwd_kernelIf", "_ZN5flash10dkv_kernelIf"))]
+    if fma:
+        raise AssertionError(f"the FMA forward or dK/dV is still built: {fma}")
     others = {f: c for f, c in counts.items() if f not in sm90 and f not in tf32}
     print(f"  SASS: {sum(c['HGMMA'] + c['HMMA.1688.F32.TF32'] for c in others.values())} HGMMA "
-          f"or TF32 HMMA in the other {len(others)} kernels; no FMA forward")
+          f"or TF32 HMMA in the other {len(others)} kernels; no FMA forward or dK/dV")
 
 
 def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, shape, cond=None):
@@ -1041,14 +1115,17 @@ def main() -> int:
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed
-    # above), the fp32 forward's from the tiny SD step in fp32 on the card.
+    # above), the fp32 forward's and dK/dV's from the tiny SD step in fp32
+    # on the card.
     counts = {**celeb_counts, **{k: sd_counts[k] for k in FLASH_OPS},
-              "flash_fwd_fp32": fp32_counts["flash_fwd"]}
+              "flash_fwd_fp32": fp32_counts["flash_fwd"],
+              "flash_bwd_dkv_fp32": fp32_counts["flash_bwd_dkv"]}
     sources = {"siss_reduce": ("siss_tpu_torch/ops/csrc/siss_reduce.cu", "siss_tpu/ops/siss_pallas.py:55"),
                "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120"),
                "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
                "flash_fwd_fp32": ("siss_tpu_torch/ops/csrc/flash_fwd_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
                "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+               "flash_bwd_dkv_fp32": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
                "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **record[name]) for name, (src, rep) in sources.items()]

@@ -42,6 +42,22 @@ Of the fp32 3xTF32 forward, ``ops/csrc/flash_fwd_tf32x3.cu`` and
 - ``fwd_fastexp``: __expf in place of expf (timing only), to see what the
   accurate exponential costs.
 
+Of the fp32 3xTF32 dK/dV, ``ops/csrc/flash_bwd_dkv_tf32x3.cu`` (time these
+with ``--dtype float32``):
+
+- ``dkv_mt1``: one 16-key m-tile per warp at every head dim (two at
+  D <= 40 as shipped);
+- ``dkv_q64``: 64-query Q/dO tiles at D <= 40 (32 as shipped; at D = 64
+  and 80 two groups' 64-query rings would not fit in shared memory);
+- ``dkv_g1``: one query group per block at every head dim (two at D = 64
+  and 80 as shipped);
+- ``dkv_chained``: dV += P^T dO and dK += dS^T Q accumulated straight into
+  dK and dV by the tensor cores (no fresh accumulator per 8-deep step);
+- ``dkv_unrolled``: S^T's and dP^T's 8-deep steps fully unrolled with two
+  m-tiles too (rolled there as shipped; ptxas spills);
+- ``dkv_hicvt``: hi rounded by cvt.rna with two m-tiles (by the integer
+  rounding of its bits as shipped).
+
 Time them in turns with the shipped kernel on one card (A, B, ..., B, A).
 An edit whose text no longer matches the source raises.
 """
@@ -53,6 +69,7 @@ REPO = Path(__file__).resolve().parents[1]
 DQ = "siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu"
 FWD = "siss_tpu_torch/ops/csrc/flash_fwd_tf32x3.cu"
 FWD_H = "siss_tpu_torch/ops/csrc/flash_tf32x3.cuh"
+DKV = "siss_tpu_torch/ops/csrc/flash_bwd_dkv_tf32x3.cu"
 
 LOOP_START = "  mbar_wait(qdo_full, 0);\n"
 LOOP_END = "#pragma unroll\n  for (int hf = 0; hf < 2; ++hf) {\n    const int row"
@@ -196,6 +213,18 @@ def variants():
                                     "  lo = to_tf32(x - __uint_as_float(hi));",
                                     "  hi = __float_as_uint(x);\n  lo = 0u;")),
         "fwd_fastexp": edit(FWD, ("expf(", "__expf(")),
+        "dkv_mt1": edit(DKV, ("static constexpr int kMT = D <= 40 ? 2 : 1;",
+                              "static constexpr int kMT = 1;")),
+        "dkv_q64": edit(DKV, ("static constexpr int kQ = 32;",
+                              "static constexpr int kQ = D <= 40 ? 64 : 32;")),
+        "dkv_g1": edit(DKV, ("static constexpr int kGroups = D == 64 || D == 80 ? 2 : 1;",
+                             "static constexpr int kGroups = 1;")),
+        "dkv_chained": edit(DKV, ("mma3_add(dva[mt][n],", "mma3(dva[mt][n],"),
+                            ("mma3_add(dka[mt][n],", "mma3(dka[mt][n],")),
+        "dkv_unrolled": edit(DKV, ("static constexpr int kUnrollS = kMT == 2 ? 1 : D / 8;",
+                                   "static constexpr int kUnrollS = D / 8;")),
+        "dkv_hicvt": edit(DKV, ("static constexpr bool kHiCvt = false;",
+                                "static constexpr bool kHiCvt = kMT == 2;")),
     }
 
 

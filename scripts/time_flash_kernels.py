@@ -13,8 +13,9 @@ device ms of one launch of flash_fwd, flash_bwd_dkv and flash_bwd_dq at
 ``chip_smoke.py`` times them (CUDA events over 20-launch batches, the
 device kept ahead of the host), and ptxas' registers, spills and C75xx
 warnings for the tensor-core kernels at those head dims; in fp32 also the
-forward's largest error against a float64 reference beside the fp32 plain
-version's (``chip_smoke.float64_errors``). To compare two
+forward's and the dK/dV's largest errors against a float64 reference
+beside the fp32 plain versions' (``chip_smoke.float64_errors``,
+``chip_smoke.float64_dkv_errors``). To compare two
 checkouts on one card, run it for each in turns (A, B, B, A) in one
 command; the parent of a change can be unpacked with ``git archive`` into
 a git-ignored directory for that.
@@ -56,7 +57,7 @@ def main() -> int:
 
     build.load()
     dtype = getattr(torch, args.dtype)
-    times, float64 = {}, {}
+    times, float64, dkv_float64 = {}, {}, {}
     for shape in SHAPES:
         B, H, N, d = shape
         gen = torch.Generator(device="cuda").manual_seed(7)
@@ -68,6 +69,9 @@ def main() -> int:
         if dtype == torch.float32:
             float64[str(list(shape))] = smoke.float64_errors(
                 torch, q, k, v, scale, o, lse, *fa.flash_attention_plain(q, k, v, scale))
+            dkv_float64[str(list(shape))] = smoke.float64_dkv_errors(
+                torch, q, k, v, lse, do, di, scale, *fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
+                *fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale))
         fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, scale),
                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
                "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale)}
@@ -77,7 +81,8 @@ def main() -> int:
              if fn.endswith(("<40>", "<80>"))}
     print(json.dumps({"label": args.label or str(args.root), "dtype": args.dtype,
                       "card": smoke.card_line(), "build_s": build.build_info["seconds"],
-                      "ms": times, "ptxas": ptxas, "fwd_float64_err_vs_plain": float64}))
+                      "ms": times, "ptxas": ptxas, "fwd_float64_err_vs_plain": float64,
+                      "dkv_float64_err_vs_plain": dkv_float64}))
     return 0
 
 

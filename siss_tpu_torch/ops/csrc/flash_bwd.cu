@@ -15,80 +15,25 @@
 // operands' type.
 //
 // Both entry points dispatch on the operands' type: bf16 runs the
-// tensor-core kernels of flash_bwd_dkv_sm90.cu and flash_bwd_dq_sm90.cu,
-// fp32 the FMA kernels below (tensor cores would mean TF32).
+// tensor-core kernels of flash_bwd_dkv_sm90.cu and flash_bwd_dq_sm90.cu;
+// fp32 dK/dV runs the 3xTF32 tensor-core kernel of flash_bwd_dkv_tf32x3.cu
+// and fp32 dQ the FMA kernel below.
 //
 // Bound on an H100 SXM: by operations. dK/dV does 8 B H N^2 d of them (s,
 // dv, dp, dk) and dQ 6 B H N^2 d (s, dp, dq): at (1, 8, 4096, 40) in bf16
 // that is 43.4 us and 32.6 us at 989 TFLOP/s. The whole backward needs
 // only 10 B H N^2 d (54.3 us) when one kernel produces all three
 // gradients; splitting it, as the TPU version does, recomputes s and dp.
-// The FMA kernels run on fp32 FMAs (67 TFLOP/s).
+// The FMA dQ kernel runs on fp32 FMAs (67 TFLOP/s).
 //
-// Design (flash_common.cuh): dK/dV gives each key row its k, v, dk and dv
-// in registers and streams q, dO, lse and di through shared memory; dQ
-// gives each query row its q, dO and dq and streams k and v. Each gradient
-// row is written by exactly one block, so there are no atomics and the
-// result repeats bit for bit.
+// Design of the FMA dQ (flash_common.cuh): each query row keeps its q, dO
+// and dq in registers and streams k and v through shared memory. Each
+// gradient row is written by exactly one block, so there are no atomics and
+// the result repeats bit for bit.
 
 #include "flash_common.cuh"
 
 namespace flash {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ lse, const T* __restrict__ dout,
-           const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv, int H, int N,
-           int d, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-           float scale) {
-  using S = RowSplit<D>;
-  __shared__ __align__(16) float qs[kTile * D];
-  __shared__ __align__(16) float dos[kTile * D];
-  __shared__ float lse_s[kTile];
-  __shared__ float di_s[kTile];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * S::ROWS + threadIdx.x / S::TPR;  // key row
-  const int c0 = (threadIdx.x % S::TPR) * S::DH;
-
-  float kr[S::DH], vr[S::DH], dk_acc[S::DH], dv_acc[S::DH];
-  load_row<T, S::DH>(kr, k + sk.row(b, h, row), c0, d);
-  load_row<T, S::DH>(vr, v + sv.row(b, h, row), c0, d);
-#pragma unroll
-  for (int c = 0; c < S::DH; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-  const T* qb = q + sq.row(b, h, 0);
-  const T* dob = dout + sdo.row(b, h, 0);
-  const long long bh = ((long long)b * H + h) * N;
-
-  for (int m0 = 0; m0 < N; m0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(qs, qb + (long long)m0 * sq.n, sq.n, d);
-    load_tile<T, D>(dos, dob + (long long)m0 * sdo.n, sdo.n, d);
-    if (threadIdx.x < kTile) {
-      lse_s[threadIdx.x] = lse[bh + m0 + threadIdx.x];
-      di_s[threadIdx.x] = di[bh + m0 + threadIdx.x];
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int i = 0; i < kTile; i += 4) {
-      float s4[4], dp4[4];
-      dot4<D, S::DH>(kr, qs, i, c0, s4);
-      dot4<D, S::DH>(vr, dos, i, c0, dp4);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float s = row_sum<S::TPR>(s4[r]) * scale;
-        const float dp = row_sum<S::TPR>(dp4[r]);
-        const float p = expf(s - lse_s[i + r]);
-        const float ds = (dp - di_s[i + r]) * p * scale;
-        axpy<D, S::DH>(dv_acc, round_to<T>(p), dos, i + r, c0);
-        axpy<D, S::DH>(dk_acc, round_to<T>(ds), qs, i + r, c0);
-      }
-    }
-  }
-  store_row<T, S::DH>(dk + sdk.row(b, h, row), dk_acc, c0, d);
-  store_row<T, S::DH>(dv + sdv.row(b, h, row), dv_acc, c0, d);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -139,33 +84,6 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const float* lse, const void* dout,
-               const float* di, void* dk, void* dv, int B, int H, int N, int d, int D,
-               const long long* strides, float scale, cudaStream_t stream) {
-  const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
-                sv = strides_at(strides, 2), sdo = strides_at(strides, 3),
-                sdk = strides_at(strides, 4), sdv = strides_at(strides, 5);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  T* dkp = static_cast<T*>(dk);
-  T* dvp = static_cast<T*>(dv);
-  switch (D) {
-#define FLASH_DKV_CASE(DD)                                                                  \
-  case DD:                                                                                \
-    dkv_kernel<T, DD><<<dim3(N / RowSplit<DD>::ROWS, H, B), kThreads, 0, stream>>>(       \
-        qp, kp, vp, lse, dop, di, dkp, dvp, H, N, d, sq, sk, sv, sdo, sdk, sdv, scale);   \
-    break;
-    FLASH_HEAD_DIMS(FLASH_DKV_CASE)
-#undef FLASH_DKV_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const float* lse, const void* dout,
               const float* di, void* dq, int B, int H, int N, int d, int D,
               const long long* strides, float scale, cudaStream_t stream) {
@@ -196,7 +114,7 @@ int launch_dq(const void* q, const void* k, const void* v, const float* lse, con
 // q, k, v, dout, dk, dv: [B, H, N, d] operands with element strides in
 // strides[0..17] (in that order; each batch, head, sequence). lse, di: fp32
 // [B, H, N], contiguous. D, N and dtype as for flash_fwd: fp32 runs the
-// FMA kernel, bf16 the tensor-core kernel.
+// 3xTF32 kernel, bf16 the wgmma kernel.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* lse,
                              const void* dout, const void* di, void* dk, void* dv, int B, int H,
                              int N, int d, int D, int dtype, const long long* strides,
@@ -206,7 +124,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   const float* t = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, l, dout, t, dk, dv, B, H, N, d, D, strides, scale, s);
+    return launch_dkv_fp32_tf32x3(q, k, v, l, dout, t, dk, dv, B, H, N, d, D, strides, scale, s);
   if (dtype == 1)
     return launch_dkv_bf16_sm90(q, k, v, l, dout, t, dk, dv, B, H, N, d, D, strides, scale, s);
   return (int)cudaErrorInvalidValue;

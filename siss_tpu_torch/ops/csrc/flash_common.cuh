@@ -1,20 +1,19 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // the bf16 tensor-core kernels of flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu
 // and flash_bwd_dq_sm90.cu, whose own pieces are in flash_sm90.cuh, and the
-// fp32 tensor-core forward of flash_fwd_tf32x3.cu, whose own pieces are in
-// flash_tf32x3.cuh).
+// fp32 tensor-core forward and dK/dV of flash_fwd_tf32x3.cu and
+// flash_bwd_dkv_tf32x3.cu, whose own pieces are in flash_tf32x3.cuh).
 //
 // Every operand is a [B, H, N, d] tensor given by its element strides, with
 // the head dimension contiguous, so the kernels read q, k and v straight
 // from the [B, N, H, d] outputs of the to_q/to_k/to_v projections and write
 // o, dq, dk and dv in that layout too. All arithmetic is fp32.
 //
-// The FMA helpers below serve the fp32 dK/dV and dQ kernels. Work split:
-// each block owns ROWS rows of one (batch, head) of the "row" operand
-// (queries for the forward and dQ, keys for dK/dV) and streams the other
-// operand through shared memory in tiles of kTile rows, converted to fp32
-// once per tile. A row's head dimension is split over TPR
-// neighbouring lanes, DH columns each, so a row's accumulators stay in
+// The FMA helpers below serve the fp32 dQ kernel. Work split: each block
+// owns ROWS rows of one (batch, head) of the "row" operand (queries for
+// dQ) and streams the other operand through shared memory in tiles of
+// kTile rows, converted to fp32 once per tile. A row's head dimension is
+// split over TPR neighbouring lanes, DH columns each, so a row's accumulators stay in
 // registers at every head dim up to 128; a dot product over the head
 // dimension is summed across those lanes with shuffles. All lanes of a block
 // read the same tile row at once, so the shared-memory reads are broadcasts.
@@ -156,6 +155,11 @@ int launch_dq_bf16_sm90(const void* q, const void* k, const void* v, const float
 int launch_fwd_fp32_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse,
                            int B, int H, int N, int d, int D, const long long* strides,
                            float scale, cudaStream_t stream);
+// The fp32 dK/dV on Hopper's tensor cores (3xTF32), with flash_bwd_dkv's arguments.
+int launch_dkv_fp32_tf32x3(const void* q, const void* k, const void* v, const float* lse,
+                           const void* dout, const float* di, void* dk, void* dv, int B, int H,
+                           int N, int d, int D, const long long* strides, float scale,
+                           cudaStream_t stream);
 
 }  // namespace flash
 

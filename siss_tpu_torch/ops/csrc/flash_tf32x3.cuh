@@ -1,7 +1,8 @@
-// Pieces of the fp32 flash-attention forward on Hopper's tensor cores
-// (flash_fwd_tf32x3.cu): the three-product TF32 split ("3xTF32") that keeps
-// fp32 accuracy on the tensor cores, mma.sync m16n8k8 with TF32 operands,
-// its fragment loaders for row-padded shared-memory tiles, and cp.async.
+// Pieces of the fp32 flash-attention forward and dK/dV on Hopper's tensor
+// cores (flash_fwd_tf32x3.cu, flash_bwd_dkv_tf32x3.cu): the three-product
+// TF32 split ("3xTF32") that keeps fp32 accuracy on the tensor cores,
+// mma.sync m16n8k8 with TF32 operands, its fragment loaders for row-padded
+// shared-memory tiles, and cp.async.
 //
 // The split. A tensor core reads a TF32 operand: the top 19 bits of a
 // 32-bit register (sign, 8 exponent bits, 10 mantissa bits). An fp32 x is
@@ -118,6 +119,44 @@ __device__ __forceinline__ void b_frag_kn(const float* __restrict__ tile, int k0
   split<kHiCvt>(p[LD], bh[1], bl[1]);
 }
 
+// The same two fragments from a tile already split into a hi and a lo plane
+// of the same layout: no arithmetic, two loads per part.
+template <int LD>
+__device__ __forceinline__ void b_frag_nk_split(const float* __restrict__ hi,
+                                                const float* __restrict__ lo, int n0, int k0,
+                                                int g, int t, uint32_t (&bh)[2],
+                                                uint32_t (&bl)[2]) {
+  const int i = (n0 + g) * LD + k0 + t;
+  bh[0] = __float_as_uint(hi[i]);
+  bh[1] = __float_as_uint(hi[i + 4]);
+  bl[0] = __float_as_uint(lo[i]);
+  bl[1] = __float_as_uint(lo[i + 4]);
+}
+template <int LD>
+__device__ __forceinline__ void b_frag_kn_split(const float* __restrict__ hi,
+                                                const float* __restrict__ lo, int k0, int n0,
+                                                int g, int t, uint32_t (&bh)[2],
+                                                uint32_t (&bl)[2]) {
+  const int i = (k0 + 2 * t) * LD + n0 + g;
+  bh[0] = __float_as_uint(hi[i]);
+  bh[1] = __float_as_uint(hi[i + LD]);
+  bl[0] = __float_as_uint(lo[i]);
+  bl[1] = __float_as_uint(lo[i + LD]);
+}
+
+// The split A fragment of rows 0..15 of a [rows, LD] tile, k-step kk:
+// a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4): K in
+// S^T = K Q^T, k running over the head dim.
+template <int LD, bool kHiCvt>
+__device__ __forceinline__ void a_frag(const float* __restrict__ rows, int kk, int g, int t,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float* p = rows + g * LD + 8 * kk + t;
+  split<kHiCvt>(p[0], ah[0], al[0]);
+  split<kHiCvt>(p[8 * LD], ah[1], al[1]);
+  split<kHiCvt>(p[4], ah[2], al[2]);
+  split<kHiCvt>(p[8 * LD + 4], ah[3], al[3]);
+}
+
 // The split A fragment of P from an S accumulator tile c (keys k0 + 2t and
 // k0 + 2t + 1 of rows g and g + 8): a0 = c0, a1 = c2, a2 = c1, a3 = c3, which
 // is keys 2t, 2t + 1 at k = t, t + 4, the order b_frag_kn reads V in. No data
@@ -133,6 +172,17 @@ __device__ __forceinline__ void p_frag(const float (&c)[4], uint32_t (&ah)[4],
     ah[i] = to_tf32_bits(x);
     al[i] = to_tf32_bits(x - __uint_as_float(ah[i]));
   }
+}
+
+// The same A fragment of a signed, unbounded accumulator tile (dS^T in the
+// dK/dV kernel): lo by cvt.rna (split<>), so |x - hi - lo| <= 2^-22 |x| for
+// either sign and a NaN stays NaN.
+template <bool kHiCvt>
+__device__ __forceinline__ void acc_frag(const float (&c)[4], uint32_t (&ah)[4],
+                                         uint32_t (&al)[4]) {
+  const int order[4] = {0, 2, 1, 3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split<kHiCvt>(c[order[i]], ah[i], al[i]);
 }
 
 // Asynchronous copies global -> shared: 16 bytes (.cg, through L2 only; both

@@ -13,12 +13,13 @@ CUDA C++ for sm_90a, carry it on the card:
 Each C entry point dispatches on the operands' type (``kernel_impl``): bf16
 runs on the tensor cores (``wgmma``, with TMA tile copies:
 ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``,
-``csrc/flash_bwd_dq_sm90.cu``). The fp32 forward runs on the tensor cores
-too (``tf32x3``: ``csrc/flash_fwd_tf32x3.cu``, ``mma.sync`` with each
-operand split into two TF32 parts and each product issued three times, so
-the products keep fp32 accuracy; ``split_tf32`` and
-``flash_attention_tf32x3_emulated`` model its arithmetic). The fp32 dK/dV
-and dQ run on fp32 FMAs (``fma``: ``csrc/flash_bwd.cu``).
+``csrc/flash_bwd_dq_sm90.cu``). The fp32 forward and dK/dV run on the
+tensor cores too (``tf32x3``: ``csrc/flash_fwd_tf32x3.cu`` and
+``csrc/flash_bwd_dkv_tf32x3.cu``, ``mma.sync`` with each operand split into
+two TF32 parts and each product issued three times, so the products keep
+fp32 accuracy; ``split_tf32``, ``flash_attention_tf32x3_emulated`` and
+``flash_bwd_dkv_tf32x3_emulated`` model their arithmetic). The fp32 dQ
+runs on fp32 FMAs (``fma``: ``csrc/flash_bwd.cu``).
 
 Each has a plain PyTorch version beside it (``flash_attention_plain``,
 ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``; ``flash_attention_bwd_plain``
@@ -52,7 +53,7 @@ _HEAD_DIMS = (8, 16, 40, 64, 80, 128)
 _SEQ_MULTIPLE = 128
 # What each C entry point runs for each operand type.
 _IMPLS = {"flash_fwd": {torch.float32: "tf32x3", torch.bfloat16: "wgmma"},
-          "flash_bwd_dkv": {torch.float32: "fma", torch.bfloat16: "wgmma"},
+          "flash_bwd_dkv": {torch.float32: "tf32x3", torch.bfloat16: "wgmma"},
           "flash_bwd_dq": {torch.float32: "fma", torch.bfloat16: "wgmma"}}
 
 
@@ -173,7 +174,7 @@ def flash_attention_tf32x3_emulated(q, k, v, scale, keys_per_tile=64):
         d, N = q.shape[-1], k.shape[-2]
         pad = (0, -d % 8)  # the kernel's padded head dim: zeros add nothing
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
-        groups = 2 if padded_head_dim(d) in (64, 80) else 1
+        groups = _tf32x3_groups(d)
         parts = [_online_softmax_pv(q, k[..., n0:n0 + N // groups, :],
                                     v[..., n0:n0 + N // groups, :], scale, keys_per_tile,
                                     pv_per_tile=groups == 2)
@@ -185,6 +186,40 @@ def flash_attention_tf32x3_emulated(q, k, v, scale, keys_per_tile=64):
             a0, a1 = torch.exp(m - m_new), torch.exp(m1 - m_new)
             l, acc, m = l * a0 + l1 * a1, acc * a0[..., None] + acc1 * a1[..., None], m_new
         return (acc / l[..., None])[..., :d], m + torch.log(l)
+
+
+def flash_bwd_dkv_tf32x3_emulated(q, k, v, lse, do, di, scale):
+    """A plain model of the fp32 3xTF32 dK/dV kernel's arithmetic: (dk, dv)
+    fp32. Key-major, as the kernel: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ from split
+    operands (``_mm3_steps``), Sᵀ scaled; P = exp(Sᵀ − lse) and dS = (dPᵀ −
+    di)·P·scale, lse and di indexed by query; then dV = Σ P·dO and dK =
+    Σ dS·Q over the queries in 8-deep steps, each added in fp32 (dS, signed,
+    split as any operand). At padded head dims 64 and 80 the kernel runs
+    two query groups, each over its half of the queries, and adds the
+    second's dK and dV to the first's at the end. Tiling the queries does
+    not change the sums: each group adds its steps in query order. For the
+    tests and ``chip_smoke.py``; nothing on the port's path calls it."""
+    with torch.autocast(q.device.type, enabled=False):
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+        d, N = q.shape[-1], q.shape[-2]
+        pad = (0, -d % 8)  # the kernel's padded head dim: zeros add nothing
+        q, k, v, do = (torch.nn.functional.pad(t, pad) for t in (q, k, v, do))
+        p = torch.exp(_mm3_steps(0.0, k, q.transpose(-1, -2)) * scale - lse[..., None, :])
+        ds = (_mm3_steps(0.0, v, do.transpose(-1, -2)) - di[..., None, :]) * p * scale
+        span = N // _tf32x3_groups(d)  # queries per group
+        parts = [(_mm3_steps(torch.zeros_like(k), ds[..., m0:m0 + span], q[..., m0:m0 + span, :]),
+                  _mm3_steps(torch.zeros_like(v), p[..., m0:m0 + span], do[..., m0:m0 + span, :]))
+                 for m0 in range(0, N, span)]
+        dk, dv = parts[0]
+        for dk1, dv1 in parts[1:]:
+            dk, dv = dk + dk1, dv + dv1
+        return dk[..., :d], dv[..., :d]
+
+
+def _tf32x3_groups(d):
+    """Key groups of the 3xTF32 forward, query groups of its dK/dV: two at
+    padded head dims 64 and 80, else one."""
+    return 2 if padded_head_dim(d) in (64, 80) else 1
 
 
 def _online_softmax_pv(q, k, v, scale, keys_per_tile, pv_per_tile):

@@ -203,3 +203,122 @@ def test_emulated_forward_pads_the_head_dim_and_tiles_keys():
     terms = torch.softmax((q.double() @ k.double().transpose(-1, -2)) * scale, -1) @ v.double().abs()
     assert bool(((o.double() - o64).abs()
                  <= chip_smoke.flash_bound(torch, o64, terms, torch.float32, 128)).all())
+
+
+# --- the fp32 dK/dV kernel's arithmetic (csrc/flash_bwd_dkv_tf32x3.cu) ---
+
+def dkv_inputs(d, seed, N=256):
+    """q, k, v, dO (numpy normals, [1, 2, N, d]), lse from the plain forward,
+    di = rowsum(O·dO), and the scale: what the dK/dV kernel takes."""
+    q, k, v, do = (torch.from_numpy(x) for x in attention_inputs(d, seed, N)
+                   + [np.random.default_rng(seed + 100).standard_normal((1, 2, N, d))
+                      .astype(np.float32)])
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_plain(q, k, v, scale)
+    return q, k, v, do, lse, fa.row_dot(o, do), scale
+
+
+def float64_dkv(q, k, v, do, lse, di, scale):
+    """flash_bwd_dkv_plain's formula in float64 (lse and di cast up): dk,
+    dv and the sums of their terms' magnitudes, Σ|dS|·|q| and Σ P·|dO|."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.exp((q @ k.transpose(-1, -2)) * scale - lse.double()[..., None])
+    ds = ((do @ v.transpose(-1, -2)) - di.double()[..., None]) * p * scale
+    return (ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do,
+            ds.abs().transpose(-1, -2) @ q.abs(), p.transpose(-1, -2) @ do.abs())
+
+
+def within_flash_bound(got, want, terms, N):
+    return bool(((got.double() - want).abs()
+                 <= chip_smoke.flash_bound(torch, want, terms, torch.float32, N)).all())
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_emulated_dkv_within_flash_bound_of_float64(d):
+    """The dK/dV kernel's arithmetic at (1, 2, 256, d), key-major with every
+    8-deep step added in fp32 (and two query groups at d = 80), is within
+    chip_smoke.flash_bound (fp32) of the float64 reference in dk and dv:
+    the bound the card holds the kernel to. The same products with one TF32
+    pass each (hi·hi only) break it."""
+    q, k, v, do, lse, di, scale = dkv_inputs(d, seed=3)
+    dk, dv = fa.flash_bwd_dkv_tf32x3_emulated(q, k, v, lse, do, di, scale)
+    dk64, dv64, terms_dk, terms_dv = float64_dkv(q, k, v, do, lse, di, scale)
+    assert dk.dtype == dv.dtype == torch.float32 and dk.shape == dv.shape == q.shape
+    assert within_flash_bound(dk, dk64, terms_dk, 256) and within_flash_bound(dv, dv64, terms_dv, 256)
+
+    qh, kh, vh, doh = (fa.split_tf32(t)[0] for t in (q, k, v, do))
+    p = torch.exp((kh @ qh.transpose(-1, -2)) * scale - lse[..., None, :])
+    ds = ((vh @ doh.transpose(-1, -2)) - di[..., None, :]) * p * scale
+    one_pass = (fa.split_tf32(ds)[0] @ qh, fa.split_tf32(p)[0] @ doh)
+    assert not (within_flash_bound(one_pass[0], dk64, terms_dk, 256)
+                and within_flash_bound(one_pass[1], dv64, terms_dv, 256))
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_emulated_dkv_matches_the_pallas_kernel(d):
+    """The dK/dV kernel's arithmetic against the JAX library's Pallas kernel
+    _flash_attention_dkv_kernel (through _flash_attention_bwd_dkv, in TPU
+    interpret mode, 128-row blocks) at fp32: gradients atol 1e-5, as
+    tests/test_torch_flash_attention.py holds the plain dK/dV."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (rng.standard_normal((1, 2, 256, d)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, l, m = jfa.mha_reference_no_custom_vjp(*map(jnp.asarray, (q, k, v)), sm_scale=scale,
+                                              save_residuals=True)
+    di = fa.row_dot(torch.from_numpy(np.array(o)), torch.from_numpy(do))
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa._flash_attention_bwd_dkv(
+            *map(jnp.asarray, (q, k, v)), None, None, l, m, jnp.asarray(do), jnp.asarray(di.numpy()),
+            block_q_major=128, block_q=128, block_k_major=128, block_k=128, sm_scale=scale,
+            causal=False, mask_value=jfa.DEFAULT_MASK_VALUE, debug=False)
+    lse = torch.from_numpy(np.array(m + jnp.log(l)))
+    got = fa.flash_bwd_dkv_tf32x3_emulated(*map(torch.from_numpy, (q, k, v)), lse,
+                                           torch.from_numpy(do), di, scale)
+    for name, g, w in zip(("dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("d,N", [(24, 128), (80, 128), (80, 384)])
+def test_emulated_dkv_pads_the_head_dim_and_splits_the_queries(d, N, monkeypatch):
+    """As the kernel runs it: d = 24 padded to the built head dim 40 with
+    zero columns gives the same bits (the zero products add exact zeros);
+    at d = 80 two query groups, each over its half of the N queries (64
+    and 192 queries each at N = 128 and 384), added at the end, give
+    one group's dk and dv to fp32 rounding. Each within flash_bound of
+    float64."""
+    q, k, v, do, lse, di, scale = dkv_inputs(d, seed=4, N=N)
+    dk, dv = fa.flash_bwd_dkv_tf32x3_emulated(q, k, v, lse, do, di, scale)
+    dk64, dv64, terms_dk, terms_dv = float64_dkv(q, k, v, do, lse, di, scale)
+    assert within_flash_bound(dk, dk64, terms_dk, N) and within_flash_bound(dv, dv64, terms_dv, N)
+    if d == 24:
+        q40, k40, v40, do40 = (torch.nn.functional.pad(t, (0, 40 - d)) for t in (q, k, v, do))
+        dk40, dv40 = fa.flash_bwd_dkv_tf32x3_emulated(q40, k40, v40, lse, do40, di, scale)
+        assert torch.equal(dk40[..., :d], dk) and torch.equal(dv40[..., :d], dv)
+        assert not bool(dk40[..., d:].any()) and not bool(dv40[..., d:].any())
+    else:
+        assert fa._tf32x3_groups(d) == 2
+        monkeypatch.setattr(fa, "_tf32x3_groups", lambda d: 1)
+        dk1, dv1 = fa.flash_bwd_dkv_tf32x3_emulated(q, k, v, lse, do, di, scale)
+        assert not torch.equal(dk1, dk)  # the groups' sums do take another order
+        torch.testing.assert_close(dk, dk1, atol=2e-6, rtol=0)
+        torch.testing.assert_close(dv, dv1, atol=2e-6, rtol=0)
+
+
+def test_split_of_a_signed_ds_reconstructs_it():
+    """dS = (dP − di)·P·scale is signed and unbounded, unlike P ∈ [0, 1]: its
+    split (hi by the bits, lo by cvt.rna's rule, as the kernel's acc_frag
+    forms them) keeps the sign in hi, carries no bits below TF32's mantissa,
+    and reconstructs dS within 2⁻²²·|dS| for both signs."""
+    q, k, v, do, lse, di, scale = dkv_inputs(40, seed=6, N=128)
+    p = torch.exp((k @ q.transpose(-1, -2)) * scale - lse[..., None, :])
+    ds = ((v @ do.transpose(-1, -2)) - di[..., None, :]) * p * scale
+    ds = ds[ds != 0]
+    assert bool((ds < 0).any()) and bool((ds > 0).any())
+    assert float(ds.abs().max() / ds.abs().min()) > 2.0 ** 20  # many binades
+    hi, lo = fa.split_tf32(ds)
+    assert not bool((bits(hi) & 0x1FFF).any()) and not bool((bits(lo) & 0x1FFF).any())
+    assert bool((torch.signbit(hi) == torch.signbit(ds)).all())
+    err = (hi.double() + lo.double() - ds.double()).abs()
+    for sign in (ds < 0, ds > 0):
+        assert bool((err[sign] <= 2.0 ** -22 * ds[sign].double().abs()).all())
+    assert float(err.max()) > 0
