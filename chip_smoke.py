@@ -12,12 +12,13 @@ prints no result):
    (C75xx) for each tensor-core flash kernel (bf16 ``flash::sm90::``, fp32
    ``flash::tf32x3::``), and fail if ``flash::sm90::dq_kernel<40>`` or
    ``<80>`` (the SD shapes' dQ) spills or serializes, or if
-   ``flash::tf32x3::fwd_kernel<40>``, ``<80>``, ``dkv_kernel<40>`` or
-   ``<80>`` spills; show from the library's SASS (cuobjdump) that every
-   bf16 kernel runs HGMMA (wgmma), that every fp32 forward and every fp32
-   dK/dV runs HMMA with TF32 operands (mma.sync m16n8k8) for all of its
-   products, with fewer FFMA than one key (or query) tile would need on the
-   FMA units, and that the FMA forward and FMA dK/dV are gone.
+   ``flash::tf32x3::fwd_kernel<40>``, ``<80>``, ``dkv_kernel<40>``,
+   ``<80>``, ``dq_kernel<40>`` or ``<80>`` spills; show from the library's
+   SASS (cuobjdump) that every bf16 kernel runs HGMMA (wgmma), that every
+   fp32 forward, dK/dV and dQ runs HMMA with TF32 operands (mma.sync
+   m16n8k8) for all of its products, with fewer FFMA than one key (or
+   query) tile would need on the FMA units, and that the FMA forward, dK/dV
+   and dQ are gone.
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
@@ -37,19 +38,20 @@ prints no result):
    strided [B, N, H, d] layout, and (2, 3, 256, 40) once more with
    contiguous [B, H, N, d] operands: every element within its bound, and
    in bf16 the RMS error within its bound too. Each case prints which
-   kernel ran for each (kernel, type): ``wgmma``, ``tf32x3`` or ``fma``.
+   kernel ran for each (kernel, type): ``wgmma`` or ``tf32x3``.
    lse, o, dk, dv and dq must repeat bit for bit; the autograd.Function
    must give the kernels' gradients; a shape the kernels cannot take, and a
    bf16 operand that breaks TMA's 16-byte rule, must raise. At the SD
-   shapes the fp32 forward's and the fp32 dK/dV's largest errors against a
+   shapes the largest errors of the fp32 forward, dK/dV and dQ against a
    float64 reference (the plain versions' formulas in float64) must be at
-   most twice the fp32 plain versions' own, in o and lse, and in dk and
-   dv, and each must agree with the plain model of its arithmetic
-   (``flash_attention_tf32x3_emulated``, ``flash_bwd_dkv_tf32x3_emulated``)
-   within the same bound. Then time kernel, plain version and PyTorch's
-   scaled_dot_product_attention at the SD shapes, in bf16 and in fp32 (SDPA
-   with TF32 off; the 3xTF32 kernels' bounds at the TF32 rate for their
-   three products, beside the 67 TFLOP/s FMA bound). The fp32 dQ at
+   most twice the fp32 plain versions' own, in o and lse, in dk and dv, and
+   in dq, and each must agree with the plain model of its arithmetic
+   (``flash_attention_tf32x3_emulated``, ``flash_bwd_dkv_tf32x3_emulated``,
+   ``flash_bwd_dq_tf32x3_emulated``) within the same bound. Then time
+   kernel, plain version and PyTorch's scaled_dot_product_attention at the
+   SD shapes, in bf16 and in fp32 (SDPA with TF32 off; the 3xTF32 kernels'
+   bounds at the TF32 rate for their three products, beside the 67 TFLOP/s
+   FMA bound). The fp32 dQ at
    (1, 8, 4096, 40) is timed in three rounds spread over the phase, each
    with the SM clock, power draw and temperature that nvidia-smi sampled
    during it.
@@ -82,8 +84,9 @@ prints no result):
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
 kernel's launches on the path that runs it (the bf16 flash kernels on the
-SD path, the fp32 forward and dK/dV, ``flash_fwd_fp32`` and
-``flash_bwd_dkv_fp32``, on phase 5's tiny SD step),
+SD path, the fp32 forward, dK/dV and dQ, ``flash_fwd_fp32``,
+``flash_bwd_dkv_fp32`` and ``flash_bwd_dq_fp32``, on phase 5's tiny SD
+step),
 its times at the heaviest SD site and its error; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -125,8 +128,7 @@ FLASH_OPS = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
 # Tensor-core products per product of the 3xTF32 kernels (lo·hi, hi·lo, hi·hi).
 TF32X3_PASSES = 3
 # Peak rate and products per product of each flash kernel_impl.
-FLASH_PEAKS = {"wgmma": (H100_BF16_FLOPS, 1), "tf32x3": (H100_TF32_FLOPS, TF32X3_PASSES),
-               "fma": (H100_FP32_FLOPS, 1)}
+FLASH_PEAKS = {"wgmma": (H100_BF16_FLOPS, 1), "tf32x3": (H100_TF32_FLOPS, TF32X3_PASSES)}
 
 
 def card_line() -> str:
@@ -447,6 +449,7 @@ def check_flash_case(torch, shape, dtype, seed, contiguous=False):
     if dtype == torch.float32 and shape in FLASH_SD_SHAPES:
         check_fp32_forward(torch, fa, name, q, k, v, scale, o, lse, o_p, lse_p, terms, N)
         check_fp32_dkv(torch, fa, name, q, k, v, lse, do, di, scale, dk, dv, dk_p, dv_p, terms, N)
+        check_fp32_dq(torch, fa, name, q, k, v, lse, do, di, scale, dq, dq_p, terms, N)
 
     # The autograd.Function on the card: the same kernels, so the same bits.
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -535,6 +538,38 @@ def check_fp32_dkv(torch, fa, name, q, k, v, lse, do, di, scale, dk, dv, dk_p, d
           f"against its emulated arithmetic: {', '.join(emu_errs)}")
 
 
+def float64_dq_errors(torch, q, k, v, lse, do, di, scale, dq, dq_p):
+    """(kernel's, plain version's) largest |error| in dq against
+    flash_bwd_dq_plain's formula in float64, from the same lse and di cast
+    to float64."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse.double()[..., None])
+    ds = (torch.matmul(do, v.transpose(-1, -2)) - di.double()[..., None]) * p * scale
+    del p
+    dq64 = torch.matmul(ds, k)
+    del ds
+    return tuple(float((t.double() - dq64).abs().max()) for t in (dq, dq_p))
+
+
+def check_fp32_dq(torch, fa, name, q, k, v, lse, do, di, scale, dq, dq_p, terms, N):
+    """The fp32 (3xTF32) dQ beyond flash_bound, as check_fp32_dkv holds the
+    dK/dV: its largest float64 error at most twice the fp32 plain
+    version's, and agreement with flash_bwd_dq_tf32x3_emulated, the plain
+    model of its arithmetic, within flash_bound."""
+    err, plain_err = float64_dq_errors(torch, q, k, v, lse, do, di, scale, dq, dq_p)
+    if not err <= 2 * plain_err:
+        raise AssertionError(f"flash {name} dq: float64 error {err:.3e}, more than twice the "
+                             f"fp32 plain version's {plain_err:.3e}")
+    dq_e = fa.flash_bwd_dq_tf32x3_emulated(q, k, v, lse, do, di, scale)
+    if not bool(((dq - dq_e).abs() <= flash_bound(torch, dq_e, terms["dq"], torch.float32,
+                                                   N)).all()):
+        raise AssertionError(f"flash {name} dq: the kernel and its emulated arithmetic differ "
+                             f"beyond flash_bound")
+    print(f"flash check {name} fp32 dQ against float64: dq {err:.3e} vs plain {plain_err:.3e} "
+          f"({err / plain_err:.2f}x); against its emulated arithmetic: dq "
+          f"max_abs_err={float((dq - dq_e).abs().max()):.3e}")
+
+
 def phase_flash_kernels(torch):
     import torch.nn.functional as F
 
@@ -569,16 +604,16 @@ def phase_flash_kernels(torch):
 
     dq_rounds.append(dq_round(torch, fa, "after the checks"))
     # Timing at the SD shapes in bf16 (the main path's type), then in fp32
-    # (the 3xTF32 forward and dK/dV and the FMA dQ, against SDPA in fp32
-    # with TF32 off). The JSON record holds each kernel at the 64×64-latent
-    # sites, the SD step's heaviest: bf16, and the fp32 forward and dK/dV
-    # beside it.
+    # (the 3xTF32 kernels, against SDPA in fp32 with TF32 off). The JSON
+    # record holds each kernel at the 64×64-latent sites, the SD step's
+    # heaviest: bf16, and the fp32 forward, dK/dV and dQ beside it.
     times = {(shape, dtype): time_flash(torch, fa, F, shape, dtype, errs[shape, dtype])
              for dtype in (torch.bfloat16, torch.float32) for shape in FLASH_SD_SHAPES}
     dq_rounds.append(dq_round(torch, fa, "after the timing"))
-    print("fp32 dQ (fma) [1, 8, 4096, 40] by round: " + "; ".join(dq_rounds))
+    print(f"fp32 dQ ({fa.kernel_impl('flash_bwd_dq', torch.float32)}) [1, 8, 4096, 40] by round: "
+          + "; ".join(dq_rounds))
     record = dict(times[FLASH_SD_SHAPES[0], torch.bfloat16])
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in FLASH_OPS:
         record[f"{name}_fp32"] = times[FLASH_SD_SHAPES[0], torch.float32][name]
     return record
 
@@ -617,8 +652,8 @@ def time_flash(torch, fa, F, shape, dtype, errs):
     SDPA's forward and forward + backward at one shape and type; the bound
     from the bytes and the matrix products at the rate of the units the
     kernel runs them on (``FLASH_PEAKS`` by ``kernel_impl``): bf16 tensor
-    cores; for the fp32 forward and dK/dV the TF32 tensor cores, three
-    products each (3xTF32); for the fp32 dQ the fp32 FMA units."""
+    cores; for the fp32 kernels the TF32 tensor cores, three products each
+    (3xTF32)."""
     B, H, N, d = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn((B, N, H, d), generator=gen, device="cuda")
@@ -691,10 +726,12 @@ def time_flash(torch, fa, F, shape, dtype, errs):
 
 
 # The tensor-core kernels that must not spill or serialize their wgmma:
-# the bf16 dQ and the fp32 forward and dK/dV at the SD UNet's two head dims.
+# the bf16 dQ and the fp32 forward, dK/dV and dQ at the SD UNet's two head
+# dims.
 SM90_CLEAN = ("flash::sm90::dq_kernel<40>", "flash::sm90::dq_kernel<80>")
 TF32X3_CLEAN = ("flash::tf32x3::fwd_kernel<40>", "flash::tf32x3::fwd_kernel<80>",
-                "flash::tf32x3::dkv_kernel<40>", "flash::tf32x3::dkv_kernel<80>")
+                "flash::tf32x3::dkv_kernel<40>", "flash::tf32x3::dkv_kernel<80>",
+                "flash::tf32x3::dq_kernel<40>", "flash::tf32x3::dq_kernel<80>")
 
 
 def flash_kernel_name(mangled):
@@ -783,9 +820,16 @@ def check_tensor_core_sass(lib_path):
     4 query steps × D/8 n-tiles × 3 each, and at least one 8-deep step of
     its Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 4 query n-tiles × 3 each) and fewer FFMA
     than the 64·D a lane would issue for one query tile's four products on
-    the FMA units (16 keys × 32 queries × D × 4 over 32 lanes); the FMA
-    forward (``flash::fwd_kernel<float, D>``) and FMA dK/dV
-    (``flash::dkv_kernel<float, D>``) are gone. Raise otherwise."""
+    the FMA units (16 keys × 32 queries × D × 4 over 32 lanes); every fp32
+    dQ ``flash::tf32x3::dq_kernel<D>`` runs at least 3·D/2 + 24 TF32 HMMA
+    (a 32-key tile's dQ += dS·K, fully unrolled: 4 key steps × D/8 n-tiles
+    × 3 each, and at least one 8-deep step of its S = Q·Kᵀ and dP = dO·Vᵀ:
+    4 key n-tiles × 3 each) and fewer FFMA than the 48·D a lane would issue
+    for one key tile's three products on the FMA units (16 queries × 32
+    keys × D × 3 over 32 lanes); the FMA forward
+    (``flash::fwd_kernel<float, D>``), dK/dV (``flash::dkv_kernel<float,
+    D>``) and dQ (``flash::dq_kernel<float, D>``) are gone. Raise
+    otherwise."""
     from siss_tpu_torch.ops import build
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -803,7 +847,8 @@ def check_tensor_core_sass(lib_path):
         raise AssertionError(f"fp32 tensor-core kernels are missing from the SASS: {sorted(tf32)}")
     # Per kernel: (HMMA floor, FFMA ceiling) at head dim D.
     floors = {"fwd_kernel": lambda D: (3 * D + 24, 64 * D),
-              "dkv_kernel": lambda D: (3 * D + 24, 64 * D)}
+              "dkv_kernel": lambda D: (3 * D + 24, 64 * D),
+              "dq_kernel": lambda D: (3 * D // 2 + 24, 48 * D)}
     for f, c in sorted(tf32.items()):
         D = int(f[f.index("<") + 1:-1])
         least, most = floors[f[len("flash::tf32x3::"):f.index("<")]](D)
@@ -813,12 +858,13 @@ def check_tensor_core_sass(lib_path):
         if hmma < least or ffma >= most:
             raise AssertionError(f"{f}: {hmma} TF32 HMMA (at least {least} expected) and "
                                  f"{ffma} FFMA (under {most} expected)")
-    fma = [f for f in counts if f.startswith(("_ZN5flash10fwd_kernelIf", "_ZN5flash10dkv_kernelIf"))]
+    fma = [f for f in counts if f.startswith(("_ZN5flash10fwd_kernelIf", "_ZN5flash10dkv_kernelIf",
+                                               "_ZN5flash9dq_kernelIf"))]
     if fma:
-        raise AssertionError(f"the FMA forward or dK/dV is still built: {fma}")
+        raise AssertionError(f"the FMA forward, dK/dV or dQ is still built: {fma}")
     others = {f: c for f, c in counts.items() if f not in sm90 and f not in tf32}
     print(f"  SASS: {sum(c['HGMMA'] + c['HMMA.1688.F32.TF32'] for c in others.values())} HGMMA "
-          f"or TF32 HMMA in the other {len(others)} kernels; no FMA forward or dK/dV")
+          f"or TF32 HMMA in the other {len(others)} kernels; no FMA forward, dK/dV or dQ")
 
 
 def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, shape, cond=None):
@@ -1115,18 +1161,18 @@ def main() -> int:
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed
-    # above), the fp32 forward's and dK/dV's from the tiny SD step in fp32
-    # on the card.
+    # above), the fp32 flash kernels' from the tiny SD step in fp32 on the
+    # card.
     counts = {**celeb_counts, **{k: sd_counts[k] for k in FLASH_OPS},
-              "flash_fwd_fp32": fp32_counts["flash_fwd"],
-              "flash_bwd_dkv_fp32": fp32_counts["flash_bwd_dkv"]}
+              **{f"{k}_fp32": fp32_counts[k] for k in FLASH_OPS}}
     sources = {"siss_reduce": ("siss_tpu_torch/ops/csrc/siss_reduce.cu", "siss_tpu/ops/siss_pallas.py:55"),
                "siss_bwd": ("siss_tpu_torch/ops/csrc/siss_bwd.cu", "siss_tpu/ops/siss_pallas.py:120"),
                "flash_fwd": ("siss_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
                "flash_fwd_fp32": ("siss_tpu_torch/ops/csrc/flash_fwd_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
                "flash_bwd_dkv": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
                "flash_bwd_dkv_fp32": ("siss_tpu_torch/ops/csrc/flash_bwd_dkv_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
-               "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
+               "flash_bwd_dq": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
+               "flash_bwd_dq_fp32": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **record[name]) for name, (src, rep) in sources.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -58,6 +58,18 @@ with ``--dtype float32``):
 - ``dkv_hicvt``: hi rounded by cvt.rna with two m-tiles (by the integer
   rounding of its bits as shipped).
 
+Of the fp32 3xTF32 dQ, ``ops/csrc/flash_bwd_dq_tf32x3.cu`` (time these with
+``--dtype float32``):
+
+- ``dq32_mt1``: one 16-row m-tile per warp at every head dim (two at
+  D <= 40 as shipped);
+- ``dq32_g1``: one key group per block at every head dim (two at D = 64
+  and 80 as shipped);
+- ``dq32_chained``: dQ += dS K accumulated straight into dQ by the tensor
+  cores (no fresh accumulator per 8-deep step);
+- ``dq32_regs1``: Q's hi fragments kept in registers at D = 40, 64 and 80
+  (every part in shared memory as shipped; ptxas spills).
+
 Time them in turns with the shipped kernel on one card (A, B, ..., B, A).
 An edit whose text no longer matches the source raises.
 """
@@ -70,6 +82,7 @@ DQ = "siss_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu"
 FWD = "siss_tpu_torch/ops/csrc/flash_fwd_tf32x3.cu"
 FWD_H = "siss_tpu_torch/ops/csrc/flash_tf32x3.cuh"
 DKV = "siss_tpu_torch/ops/csrc/flash_bwd_dkv_tf32x3.cu"
+DQ32 = "siss_tpu_torch/ops/csrc/flash_bwd_dq_tf32x3.cu"
 
 LOOP_START = "  mbar_wait(qdo_full, 0);\n"
 LOOP_END = "#pragma unroll\n  for (int hf = 0; hf < 2; ++hf) {\n    const int row"
@@ -225,6 +238,13 @@ def variants():
                                    "static constexpr int kUnrollS = D / 8;")),
         "dkv_hicvt": edit(DKV, ("static constexpr bool kHiCvt = false;",
                                 "static constexpr bool kHiCvt = kMT == 2;")),
+        "dq32_mt1": edit(DQ32, ("static constexpr int kMT = D <= 40 ? 2 : 1;",
+                                "static constexpr int kMT = 1;")),
+        "dq32_g1": edit(DQ32, ("static constexpr int kGroups = D == 64 || D == 80 ? 2 : 1;",
+                               "static constexpr int kGroups = 1;")),
+        "dq32_chained": edit(DQ32, ("mma3_add(dqa[mt][n],", "mma3(dqa[mt][n],")),
+        "dq32_regs1": edit(DQ32, ("static constexpr int kRegParts = D <= 16 ? 4 : D == 128 ? 1 : 0;",
+                                  "static constexpr int kRegParts = D <= 16 ? 4 : 1;")),
     }
 
 

@@ -13,9 +13,10 @@ device ms of one launch of flash_fwd, flash_bwd_dkv and flash_bwd_dq at
 ``chip_smoke.py`` times them (CUDA events over 20-launch batches, the
 device kept ahead of the host), and ptxas' registers, spills and C75xx
 warnings for the tensor-core kernels at those head dims; in fp32 also the
-forward's and the dK/dV's largest errors against a float64 reference
-beside the fp32 plain versions' (``chip_smoke.float64_errors``,
-``chip_smoke.float64_dkv_errors``). To compare two
+forward's, the dK/dV's and the dQ's largest errors against a float64
+reference beside the fp32 plain versions' (``chip_smoke.float64_errors``,
+``chip_smoke.float64_dkv_errors``, ``chip_smoke.float64_dq_errors``). To
+compare two
 checkouts on one card, run it for each in turns (A, B, B, A) in one
 command; the parent of a change can be unpacked with ``git archive`` into
 a git-ignored directory for that.
@@ -57,7 +58,7 @@ def main() -> int:
 
     build.load()
     dtype = getattr(torch, args.dtype)
-    times, float64, dkv_float64 = {}, {}, {}
+    times, float64, dkv_float64, dq_float64 = {}, {}, {}, {}
     for shape in SHAPES:
         B, H, N, d = shape
         gen = torch.Generator(device="cuda").manual_seed(7)
@@ -72,6 +73,9 @@ def main() -> int:
             dkv_float64[str(list(shape))] = smoke.float64_dkv_errors(
                 torch, q, k, v, lse, do, di, scale, *fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
                 *fa.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale))
+            dq_float64[str(list(shape))] = smoke.float64_dq_errors(
+                torch, q, k, v, lse, do, di, scale, fa.flash_bwd_dq(q, k, v, lse, do, di, scale),
+                fa.flash_bwd_dq_plain(q, k, v, lse, do, di, scale))
         fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, scale),
                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, lse, do, di, scale),
                "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, lse, do, di, scale)}
@@ -82,7 +86,8 @@ def main() -> int:
     print(json.dumps({"label": args.label or str(args.root), "dtype": args.dtype,
                       "card": smoke.card_line(), "build_s": build.build_info["seconds"],
                       "ms": times, "ptxas": ptxas, "fwd_float64_err_vs_plain": float64,
-                      "dkv_float64_err_vs_plain": dkv_float64}))
+                      "dkv_float64_err_vs_plain": dkv_float64,
+                      "dq_float64_err_vs_plain": dq_float64}))
     return 0
 
 

@@ -23,11 +23,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "siss_tpu_torch_kernels"
 SOURCES = ("siss_reduce.cu", "siss_bwd.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
            "flash_bwd_dkv_sm90.cu", "flash_bwd_dq_sm90.cu", "flash_fwd_tf32x3.cu",
-           "flash_bwd_dkv_tf32x3.cu", "launch_floor.cu")
+           "flash_bwd_dkv_tf32x3.cu", "flash_bwd_dq_tf32x3.cu", "launch_floor.cu")
 # --fmad=false: no multiply-add contraction, so each elementwise step rounds
 # as PyTorch's op-by-op plain versions do; the SISS backward kernel then
-# matches its plain version bit for bit. The FMA dQ kernel's products call
-# fmaf() explicitly, which the flag leaves alone; the 3xTF32 split (x - hi)
+# matches its plain version bit for bit, and the 3xTF32 kernels' softmax
+# and dS steps round as their emulated models do. The 3xTF32 split (x - hi)
 # is one exact subtraction, with or without it.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")

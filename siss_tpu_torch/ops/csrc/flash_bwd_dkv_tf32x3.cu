@@ -113,25 +113,6 @@ struct DkvShape {
                 "room for group 1's partials");
 };
 
-// Barrier over the warps of query group gr (named barrier gr + 1).
-template <int kCount>
-__device__ __forceinline__ void group_barrier(int gr) {
-  asm volatile("bar.sync %0, %1;" ::"r"(gr + 1), "n"(kCount) : "memory");
-}
-
-// Four floats at x split into hi (in place) and lo.
-template <bool kHiCvt>
-__device__ __forceinline__ void split4(float4* x, float4* lo) {
-  float v[4] = {x->x, x->y, x->z, x->w};
-  uint32_t hb[4], lb[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split<kHiCvt>(v[i], hb[i], lb[i]);
-  *x = make_float4(__uint_as_float(hb[0]), __uint_as_float(hb[1]), __uint_as_float(hb[2]),
-                   __uint_as_float(hb[3]));
-  *lo = make_float4(__uint_as_float(lb[0]), __uint_as_float(lb[1]), __uint_as_float(lb[2]),
-                    __uint_as_float(lb[3]));
-}
-
 template <int D>
 __global__ void __launch_bounds__(DkvShape<D>::kThreads)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -379,11 +360,6 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
         }
       }
     }
-}
-
-inline bool rows_aligned16(const void* p, Strides s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 && s.h % 4 == 0 &&
-         s.n % 4 == 0;
 }
 
 template <int D>

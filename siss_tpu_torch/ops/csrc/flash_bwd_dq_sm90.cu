@@ -1,6 +1,6 @@
 // Flash attention, backward dQ, bf16, on Hopper's tensor cores.
 // flash_bwd_dq (flash_bwd.cu) launches this kernel for bf16 operands; fp32
-// operands keep the FMA kernel there, since tensor cores would mean TF32.
+// operands run the 3xTF32 kernel of flash_bwd_dq_tf32x3.cu.
 //
 // Replaces the Pallas TPU kernel _flash_attention_dq_kernel of
 // jax/experimental/pallas/ops/tpu/flash_attention.py (launched by

@@ -101,11 +101,6 @@ struct FwdShape {
       sizeof(float) * (kGroups * kRing + (kQInSmem ? kWarps * kQWords : 0));
 };
 
-// Barrier over the kWarps warps of key group gr (named barrier gr + 1).
-__device__ __forceinline__ void group_sync(int gr) {
-  asm volatile("bar.sync %0, %1;" ::"r"(gr + 1), "n"(kWarps * 32) : "memory");
-}
-
 template <int D>
 __global__ void __launch_bounds__(FwdShape<D>::kThreads)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -215,7 +210,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     } else {
       cp_async_wait<0>();
     }
-    group_sync(gr);  // tile it has landed, for every copy of the group's threads
+    group_barrier<kThreads>(gr);  // tile it has landed, for every copy of the group's threads
     const float* kt = ks + (it % kStages) * F::kTile;
     const float* vt = vs + (it % kStages) * F::kTile;
 
@@ -299,7 +294,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][n][i] += pv[mt][n][i];
     }
-    group_sync(gr);  // every warp of the group is done with this stage before it is refilled
+    group_barrier<kThreads>(gr);  // every warp of the group is done with this stage before it is refilled
   }
 
   if constexpr (F::kGroups == 2) {
@@ -365,11 +360,6 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     }
 }
 
-inline bool aligned16(const void* p, Strides s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 && s.h % 4 == 0 &&
-         s.n % 4 == 0;
-}
-
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, float* lse, int B, int H,
            int N, int d, const long long* strides, float scale, cudaStream_t stream) {
@@ -381,7 +371,7 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
                 sv = strides_at(strides, 2), so = strides_at(strides, 3);
   // 16-byte copies need 16-byte aligned K and V rows and whole column groups.
-  const int vec = d % 4 == 0 && aligned16(k, sk) && aligned16(v, sv);
+  const int vec = d % 4 == 0 && rows_aligned16(k, sk) && rows_aligned16(v, sv);
   fwd_kernel<D><<<dim3(N / F::kRows, H, B), F::kThreads, smem, stream>>>(
       q, k, v, o, lse, H, N, d, sq, sk, sv, so, scale, vec);
   return static_cast<int>(cudaGetLastError());

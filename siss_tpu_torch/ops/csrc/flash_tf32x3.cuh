@@ -1,8 +1,9 @@
-// Pieces of the fp32 flash-attention forward and dK/dV on Hopper's tensor
-// cores (flash_fwd_tf32x3.cu, flash_bwd_dkv_tf32x3.cu): the three-product
-// TF32 split ("3xTF32") that keeps fp32 accuracy on the tensor cores,
-// mma.sync m16n8k8 with TF32 operands, its fragment loaders for row-padded
-// shared-memory tiles, and cp.async.
+// Pieces of the fp32 flash-attention forward, dK/dV and dQ on Hopper's
+// tensor cores (flash_fwd_tf32x3.cu, flash_bwd_dkv_tf32x3.cu,
+// flash_bwd_dq_tf32x3.cu): the three-product TF32 split ("3xTF32") that
+// keeps fp32 accuracy on the tensor cores, mma.sync m16n8k8 with TF32
+// operands, its fragment loaders for row-padded shared-memory tiles, the
+// split of a landed tile in place, cp.async and named barriers.
 //
 // The split. A tensor core reads a TF32 operand: the top 19 bits of a
 // 32-bit register (sign, 8 exponent bits, 10 mantissa bits). An fp32 x is
@@ -26,6 +27,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace flash {
 namespace tf32x3 {
@@ -60,7 +63,19 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-
+// Four floats at x split into hi (in place) and lo: a streamed tile split
+// once by the threads of a block, then read by every warp with plain loads.
+template <bool kHiCvt>
+__device__ __forceinline__ void split4(float4* x, float4* lo) {
+  float v[4] = {x->x, x->y, x->z, x->w};
+  uint32_t hb[4], lb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split<kHiCvt>(v[i], hb[i], lb[i]);
+  *x = make_float4(__uint_as_float(hb[0]), __uint_as_float(hb[1]), __uint_as_float(hb[2]),
+                   __uint_as_float(hb[3]));
+  *lo = make_float4(__uint_as_float(lb[0]), __uint_as_float(lb[1]), __uint_as_float(lb[2]),
+                    __uint_as_float(lb[3]));
+}
 
 // d += a b: one m16n8k8 product with TF32 operands and an fp32 accumulator.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -203,6 +218,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
+// Barrier over the kCount threads of group gr of a block (named barrier
+// gr + 1; barrier 0 is __syncthreads').
+template <int kCount>
+__device__ __forceinline__ void group_barrier(int gr) {
+  asm volatile("bar.sync %0, %1;" ::"r"(gr + 1), "n"(kCount) : "memory");
+}
+
+// Whether an operand's rows can be copied in 16-byte pieces: a 16-byte
+// aligned base and batch, head and sequence strides of whole float4s.
+inline bool rows_aligned16(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 && s.h % 4 == 0 &&
+         s.n % 4 == 0;
 }
 
 }  // namespace tf32x3

@@ -10,16 +10,16 @@ CUDA C++ for sm_90a, carry it on the card:
 - ``flash_bwd_dkv`` and ``flash_bwd_dq``: dK and dV in one kernel, dQ in
   another, from q, k, v, lse, dO and di = rowsum(O·dO).
 
-Each C entry point dispatches on the operands' type (``kernel_impl``): bf16
-runs on the tensor cores (``wgmma``, with TMA tile copies:
-``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``,
-``csrc/flash_bwd_dq_sm90.cu``). The fp32 forward and dK/dV run on the
-tensor cores too (``tf32x3``: ``csrc/flash_fwd_tf32x3.cu`` and
-``csrc/flash_bwd_dkv_tf32x3.cu``, ``mma.sync`` with each operand split into
+Each C entry point dispatches on the operands' type (``kernel_impl``), and
+every kernel runs on the tensor cores. bf16 runs ``wgmma`` with TMA tile
+copies (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``,
+``csrc/flash_bwd_dq_sm90.cu``). fp32 runs ``tf32x3``
+(``csrc/flash_fwd_tf32x3.cu``, ``csrc/flash_bwd_dkv_tf32x3.cu``,
+``csrc/flash_bwd_dq_tf32x3.cu``): ``mma.sync`` with each operand split into
 two TF32 parts and each product issued three times, so the products keep
-fp32 accuracy; ``split_tf32``, ``flash_attention_tf32x3_emulated`` and
-``flash_bwd_dkv_tf32x3_emulated`` model their arithmetic). The fp32 dQ
-runs on fp32 FMAs (``fma``: ``csrc/flash_bwd.cu``).
+fp32 accuracy; ``split_tf32``, ``flash_attention_tf32x3_emulated``,
+``flash_bwd_dkv_tf32x3_emulated`` and ``flash_bwd_dq_tf32x3_emulated`` model
+their arithmetic.
 
 Each has a plain PyTorch version beside it (``flash_attention_plain``,
 ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``; ``flash_attention_bwd_plain``
@@ -54,7 +54,7 @@ _SEQ_MULTIPLE = 128
 # What each C entry point runs for each operand type.
 _IMPLS = {"flash_fwd": {torch.float32: "tf32x3", torch.bfloat16: "wgmma"},
           "flash_bwd_dkv": {torch.float32: "tf32x3", torch.bfloat16: "wgmma"},
-          "flash_bwd_dq": {torch.float32: "fma", torch.bfloat16: "wgmma"}}
+          "flash_bwd_dq": {torch.float32: "tf32x3", torch.bfloat16: "wgmma"}}
 
 
 def reset_launch_counts() -> None:
@@ -216,9 +216,36 @@ def flash_bwd_dkv_tf32x3_emulated(q, k, v, lse, do, di, scale):
         return dk[..., :d], dv[..., :d]
 
 
+def flash_bwd_dq_tf32x3_emulated(q, k, v, lse, do, di, scale):
+    """A plain model of the fp32 3xTF32 dQ kernel's arithmetic: dq fp32.
+    Query-major, as the kernel: S = Q·Kᵀ and dP = dO·Vᵀ from split operands
+    (``_mm3_steps``), S scaled; P = exp(S − lse) and dS = (dP − di)·P·scale,
+    lse and di indexed by query; then dQ = Σ dS·K over the keys in 8-deep
+    steps, each added in fp32 (dS, signed, split as any operand). At padded
+    head dims 64 and 80 the kernel runs two key groups, each over its half
+    of the keys, and adds the second's dQ to the first's at the end. Tiling
+    the keys does not change the sums: each group adds its steps in key
+    order. For the tests and ``chip_smoke.py``; nothing on the port's path
+    calls it."""
+    with torch.autocast(q.device.type, enabled=False):
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+        d, N = q.shape[-1], k.shape[-2]
+        pad = (0, -d % 8)  # the kernel's padded head dim: zeros add nothing
+        q, k, v, do = (torch.nn.functional.pad(t, pad) for t in (q, k, v, do))
+        p = torch.exp(_mm3_steps(0.0, q, k.transpose(-1, -2)) * scale - lse[..., None])
+        ds = (_mm3_steps(0.0, do, v.transpose(-1, -2)) - di[..., None]) * p * scale
+        span = N // _tf32x3_groups(d)  # keys per group
+        parts = [_mm3_steps(torch.zeros_like(q), ds[..., n0:n0 + span], k[..., n0:n0 + span, :])
+                 for n0 in range(0, N, span)]
+        dq = parts[0]
+        for dq1 in parts[1:]:
+            dq = dq + dq1
+        return dq[..., :d]
+
+
 def _tf32x3_groups(d):
-    """Key groups of the 3xTF32 forward, query groups of its dK/dV: two at
-    padded head dims 64 and 80, else one."""
+    """Key groups of the 3xTF32 forward and dQ, query groups of its dK/dV:
+    two at padded head dims 64 and 80, else one."""
     return 2 if padded_head_dim(d) in (64, 80) else 1
 
 
@@ -254,8 +281,8 @@ def padded_head_dim(d: int) -> int:
 
 def kernel_impl(name: str, dtype: torch.dtype) -> str:
     """Which kernel the C entry point ``name`` launches for ``dtype``
-    operands: "wgmma" (bf16 tensor cores), "tf32x3" (fp32 on the tensor
-    cores, three TF32 products each) or "fma" (fp32 FMAs)."""
+    operands: "wgmma" (bf16 tensor cores) or "tf32x3" (fp32 on the tensor
+    cores, three TF32 products each)."""
     return _IMPLS[name][dtype]
 
 

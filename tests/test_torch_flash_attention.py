@@ -237,9 +237,9 @@ def test_bf16_operands_aligned_views_pass():
 
 
 def test_fp32_operands_skip_the_tma_rule():
-    """fp32 skips the TMA rule: the FMA dQ kernel reads rows element by
-    element, and the 3xTF32 forward and dK/dV copy their tiles with 4-byte
-    cp.async where a view is not 16-byte aligned. An unaligned fp32 view is
+    """fp32 skips the TMA rule: the 3xTF32 kernels copy their tiles with
+    4-byte cp.async where a view is not 16-byte aligned, and the dQ reads
+    its Q and dO rows element by element. An unaligned fp32 view is
     taken."""
     flat = torch.zeros(1 * 128 * 2 * 40 + 1)
     x = flat[1:].view(1, 128, 2, 40).transpose(1, 2)
@@ -254,14 +254,14 @@ def test_lse_rows_must_be_aligned():
 
 
 def test_kernel_impl_dispatches_by_dtype():
-    """bf16 forward, dK/dV and dQ run on the tensor cores; the fp32 forward
-    and dK/dV run on them too, in three TF32 products per product (plain
-    TF32 would break their parity); the fp32 dQ stays on FMAs."""
+    """bf16 forward, dK/dV and dQ run on the tensor cores; the fp32 forward,
+    dK/dV and dQ run on them too, in three TF32 products per product (plain
+    TF32 would break their parity)."""
     assert fa.kernel_impl("flash_fwd", torch.bfloat16) == "wgmma"
     assert fa.kernel_impl("flash_bwd_dkv", torch.bfloat16) == "wgmma"
     assert fa.kernel_impl("flash_bwd_dq", torch.bfloat16) == "wgmma"
     assert {fa.kernel_impl(k, torch.float32) for k in ("flash_fwd", "flash_bwd_dkv")} == {"tf32x3"}
-    assert fa.kernel_impl("flash_bwd_dq", torch.float32) == "fma"
+    assert fa.kernel_impl("flash_bwd_dq", torch.float32) == "tf32x3"
 
 
 def test_flash_wiring_rules():

@@ -1,15 +1,17 @@
-"""The fp32 flash-attention forward's 3xTF32 arithmetic, without a card.
+"""The fp32 flash-attention kernels' 3xTF32 arithmetic, without a card.
 
-The CUDA kernel (``csrc/flash_fwd_tf32x3.cu``) splits every fp32 operand x
-into TF32 parts hi = rna(x), lo = rna(x − hi) and forms each product as
-lo·hi + hi·lo + hi·hi on the tensor cores. ``split_tf32`` forms hi and lo
-bit for bit as the kernel does (``cvt.rna.tf32.f32``'s rounding), and
-``flash_attention_tf32x3_emulated`` repeats the kernel's arithmetic in
-plain PyTorch. These tests hold the split to its rounding rule, the product
-to its derived error bound, and the emulated forward to ``chip_smoke.py``'s
-fp32 bound against a float64 reference and to the JAX library's Pallas
-forward kernel (TPU interpret mode). On the card, ``chip_smoke.py`` holds the
-kernel itself to the same bound.
+The CUDA kernels (``csrc/flash_fwd_tf32x3.cu``, ``csrc/flash_bwd_dkv_tf32x3.cu``,
+``csrc/flash_bwd_dq_tf32x3.cu``) split every fp32 operand x into TF32 parts
+hi = rna(x), lo = rna(x − hi) and form each product as lo·hi + hi·lo + hi·hi
+on the tensor cores. ``split_tf32`` forms hi and lo bit for bit as the
+kernels do (``cvt.rna.tf32.f32``'s rounding), and
+``flash_attention_tf32x3_emulated``, ``flash_bwd_dkv_tf32x3_emulated`` and
+``flash_bwd_dq_tf32x3_emulated`` repeat the kernels' arithmetic in plain
+PyTorch. These tests hold the split to its rounding rule, the product to its
+derived error bound, and each emulated kernel to ``chip_smoke.py``'s fp32
+bound against a float64 reference and to the JAX library's Pallas kernel
+(TPU interpret mode). On the card, ``chip_smoke.py`` holds the kernels
+themselves to the same bound.
 
 The per-product bound. With u = 2⁻¹¹, the unit roundoff of TF32's 11
 significant bits: hi = a − δa with |δa| ≤ u|a|, lo = δa − ε with
@@ -322,3 +324,79 @@ def test_split_of_a_signed_ds_reconstructs_it():
     for sign in (ds < 0, ds > 0):
         assert bool((err[sign] <= 2.0 ** -22 * ds[sign].double().abs()).all())
     assert float(err.max()) > 0
+
+
+# --- the fp32 dQ kernel's arithmetic (csrc/flash_bwd_dq_tf32x3.cu) ---
+
+def float64_dq(q, k, v, do, lse, di, scale):
+    """flash_bwd_dq_plain's formula in float64 (lse and di cast up): dq and
+    the sums of its terms' magnitudes, Σ|dS|·|k|."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.exp((q @ k.transpose(-1, -2)) * scale - lse.double()[..., None])
+    ds = ((do @ v.transpose(-1, -2)) - di.double()[..., None]) * p * scale
+    return ds @ k, ds.abs() @ k.abs()
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_emulated_dq_within_flash_bound_of_float64(d):
+    """The dQ kernel's arithmetic at (1, 2, 256, d), query-major with every
+    8-deep step added in fp32 (and two key groups at d = 80), is within
+    chip_smoke.flash_bound (fp32) of the float64 reference: the bound the
+    card holds the kernel to. The same products with one TF32 pass each
+    (hi·hi only) break it."""
+    q, k, v, do, lse, di, scale = dkv_inputs(d, seed=7)
+    dq = fa.flash_bwd_dq_tf32x3_emulated(q, k, v, lse, do, di, scale)
+    dq64, terms = float64_dq(q, k, v, do, lse, di, scale)
+    assert dq.dtype == torch.float32 and dq.shape == q.shape
+    assert within_flash_bound(dq, dq64, terms, 256)
+
+    qh, kh, vh, doh = (fa.split_tf32(t)[0] for t in (q, k, v, do))
+    p = torch.exp((qh @ kh.transpose(-1, -2)) * scale - lse[..., None])
+    ds = ((doh @ vh.transpose(-1, -2)) - di[..., None]) * p * scale
+    assert not within_flash_bound(fa.split_tf32(ds)[0] @ kh, dq64, terms, 256)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_emulated_dq_matches_the_pallas_kernel(d):
+    """The dQ kernel's arithmetic against the JAX library's Pallas kernel
+    _flash_attention_dq_kernel (through _flash_attention_bwd_dq, in TPU
+    interpret mode, 128-row blocks) at fp32: dq atol 1e-5, as
+    tests/test_torch_flash_attention.py holds the plain dQ."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (rng.standard_normal((1, 2, 256, d)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, l, m = jfa.mha_reference_no_custom_vjp(*map(jnp.asarray, (q, k, v)), sm_scale=scale,
+                                              save_residuals=True)
+    di = fa.row_dot(torch.from_numpy(np.array(o)), torch.from_numpy(do))
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = jfa._flash_attention_bwd_dq(
+            *map(jnp.asarray, (q, k, v)), None, None, l, m, jnp.asarray(do),
+            jnp.asarray(di.numpy()), block_q_major=128, block_k_major=128, block_k=128,
+            sm_scale=scale, causal=False, mask_value=jfa.DEFAULT_MASK_VALUE, debug=False)
+    lse = torch.from_numpy(np.array(m + jnp.log(l)))
+    got = fa.flash_bwd_dq_tf32x3_emulated(*map(torch.from_numpy, (q, k, v)), lse,
+                                          torch.from_numpy(do), di, scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d,N", [(24, 128), (80, 128), (80, 384)])
+def test_emulated_dq_pads_the_head_dim_and_splits_the_keys(d, N, monkeypatch):
+    """As the kernel runs it: d = 24 padded to the built head dim 40 with
+    zero columns gives the same bits (the zero products add exact zeros);
+    at d = 80 two key groups, each over its half of the N keys (64 and 192
+    keys each at N = 128 and 384), added at the end, give one group's dq to
+    fp32 rounding. Each within flash_bound of float64."""
+    q, k, v, do, lse, di, scale = dkv_inputs(d, seed=9, N=N)
+    dq = fa.flash_bwd_dq_tf32x3_emulated(q, k, v, lse, do, di, scale)
+    dq64, terms = float64_dq(q, k, v, do, lse, di, scale)
+    assert within_flash_bound(dq, dq64, terms, N)
+    if d == 24:
+        q40, k40, v40, do40 = (torch.nn.functional.pad(t, (0, 40 - d)) for t in (q, k, v, do))
+        dq40 = fa.flash_bwd_dq_tf32x3_emulated(q40, k40, v40, lse, do40, di, scale)
+        assert torch.equal(dq40[..., :d], dq) and not bool(dq40[..., d:].any())
+    else:
+        assert fa._tf32x3_groups(d) == 2
+        monkeypatch.setattr(fa, "_tf32x3_groups", lambda d: 1)
+        dq1 = fa.flash_bwd_dq_tf32x3_emulated(q, k, v, lse, do, di, scale)
+        assert not torch.equal(dq1, dq)  # the groups' sums do take another order
+        torch.testing.assert_close(dq, dq1, atol=2e-6, rtol=0)
