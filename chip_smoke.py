@@ -64,11 +64,26 @@ prints no result):
    ``configs/delete_tshirt.yaml``): pretrain 10 epochs of the repository's
    5,632 images at batch 128 (440 steps), check the checkpoint bundle, then
    30 SISS unlearning steps at batch 64 from its ``latest`` with 50-step
-   DDPM evaluations of 128 images every 10 steps; they must launch the
-   reduce exactly 30 and the SISS backward 60 times and log finite values
-   of the task's metric keys. Then the probe: ε-MSE at t = 300 on 256
-   forget and 256 keep images before and after; the forget ratio must
-   exceed the keep ratio.
+   DDPM evaluations of 128 images every 10 steps and the shipped metrics
+   block: the exact likelihood (RK45, every 30 steps) must log a finite,
+   positive ``metrics/likelihood`` at steps 0 and 30, each evaluation's
+   seconds and NFE printed. The run must launch the reduce exactly 30 and
+   the SISS backward 60 times and log finite values of the task's metric
+   keys. Then the probe: ε-MSE at t = 300 on 256 forget and 256 keep
+   images before and after; the forget ratio must exceed the keep ratio.
+6b. From the same pretrain bundle, each of the five other objectives
+   (NegGrad with superfactor 1.0 decaying by 0.99 a microbatch) and SISS
+   with ``deletion.fused_siss=false``, 30 steps at batch 64, evaluations
+   off: finite metrics, ``gradient/scaling_factor`` on every step of a
+   surgery objective (> 0; ≤ 0 for EraseDiff) and on none of a scalar one,
+   no SISS kernel launch; each prints its median step time, img/s and
+   probe ratios; unfused SISS's ratios must be within 5% of the fused
+   run's.
+6c. ``--config-name=train_classifier`` as shipped (final batch accuracy
+   above 0.9), then 10 SISS steps with the Inception Score over that
+   classifier (``num_classes=11``) and the membership losses turned on:
+   ``metrics/is_mean``, ``metrics/is_std`` and the membership keys finite
+   at steps 0, 5 and 10; 10 reduce and 20 SISS backward launches.
 7. The celeb main path at full width: UNet2DConfig.celebahq_256(),
    microbatch 16 × 4 accumulation steps, fp32 params with bf16 autocast,
    AdamW(5e-6, betas (0.95, 0.999), wd 1e-6), scaling_norm 500, λ 0.5,
@@ -1046,10 +1061,33 @@ def tshirt_probe(torch, task, weights):
     return out
 
 
+def tshirt_rows(task):
+    """The run's metrics.jsonl rows; fails on a non-finite number."""
+    with open(Path(str(task.cfg.output_dir)) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
+           if isinstance(v, (int, float)) and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"t-shirt {task.cfg.deletion.loss_fn}: non-finite metrics {bad}")
+    return rows
+
+
+def delete_tshirt(cli, base, out, *extra):
+    """One t-shirt unlearning run through the command line at the full
+    mnist_tshirt width and batch 64, from the pretrain bundle ``base``."""
+    (task,) = cli.main(["--config-name=delete_tshirt", f"checkpoint_path={base}/latest",
+                        f"output_dir={out}", f"dataset.path={TSHIRT_DATA}",
+                        f"dataset_all.path={TSHIRT_DATA}", f"dataset_deletion.path={TSHIRT_DATA}",
+                        "train_batch_size=64", *extra])
+    return task
+
+
 def phase_tshirt(torch, card):
     """The t-shirt task through the port's command line on the card: the
     full-width mnist_tshirt pretrain, then 30 SISS unlearning steps from its
-    latest bundle, then the selectivity probe."""
+    latest bundle with the shipped metrics block (the likelihood at steps 0
+    and 30), then the selectivity probe. Returns the pretrain bundle's
+    directory and SISS's (forget, keep) probe ratios."""
     import shutil
 
     from siss_tpu_torch import main as cli
@@ -1068,39 +1106,34 @@ def phase_tshirt(torch, card):
 
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    (dele,) = cli.main(["--config-name=delete_tshirt", f"checkpoint_path={base}/latest",
-                        f"output_dir={TSHIRT_WORK / 'deletion'}", f"dataset.path={TSHIRT_DATA}",
-                        f"dataset_all.path={TSHIRT_DATA}", f"dataset_deletion.path={TSHIRT_DATA}",
-                        f"training_steps={TSHIRT_STEPS}", "train_batch_size=64",
-                        "deletion.loss_fn=importance_sampling_with_mixture",
-                        "deletion.scaling_norm=5", "sampling_steps=10", "eval_images=128",
-                        "pipeline.num_inference_steps=50", "metrics.likelihood=null"])
+    dele = delete_tshirt(cli, base, TSHIRT_WORK / "deletion", f"training_steps={TSHIRT_STEPS}",
+                         "deletion.loss_fn=importance_sampling_with_mixture",
+                         "deletion.scaling_norm=5", "sampling_steps=10", "eval_images=128",
+                         "pipeline.num_inference_steps=50")
     counts = dict(launch_counts)
     del_peak = torch.cuda.max_memory_allocated()
     expected = {k: 0 for k in counts} | {"siss_reduce": TSHIRT_STEPS, "siss_bwd": 2 * TSHIRT_STEPS}
     if counts != expected:
         raise AssertionError(f"t-shirt unlearning: launch counts {counts}, expected {expected}")
 
-    out = Path(str(dele.cfg.output_dir))
-    with open(out / "metrics.jsonl") as f:
-        rows = [json.loads(line) for line in f]
+    rows = tshirt_rows(dele)
     keys = set().union(*map(set, rows))
     if missing := [k for k in TSHIRT_KEYS if k not in keys]:
         raise AssertionError(f"t-shirt metrics.jsonl lacks {missing}")
-    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
-           if isinstance(v, (int, float)) and not math.isfinite(v)}
-    if bad:
-        raise AssertionError(f"t-shirt: non-finite metrics {bad}")
     scaling = [r["gradient/scaling_factor"] for r in rows if "gradient/scaling_factor" in r]
     if len(scaling) != TSHIRT_STEPS or not all(s > 0 for s in scaling):
         raise AssertionError(f"t-shirt: gradient/scaling_factor {scaling}")
     fractions = [(r["_step"], r["metrics/deletion_class_fraction"]) for r in rows
                  if "metrics/deletion_class_fraction" in r]
+    likelihood = [(r["_step"], r["metrics/likelihood"]) for r in rows if "metrics/likelihood" in r]
+    if [s for s, _ in likelihood] != [0, TSHIRT_STEPS] or not all(v > 0 for _, v in likelihood):
+        raise AssertionError(f"t-shirt: metrics/likelihood by step {likelihood}, expected a "
+                             f"positive value at steps 0 and {TSHIRT_STEPS}")
 
     mgr = CheckpointManager(str(base))
     probe = tshirt_probe(torch, dele, {
         "pretrain unet_ema": mgr.restore_item("latest", "unet_ema"),
-        "unlearned": CheckpointManager(str(out)).restore_item("latest", "unet")})
+        "unlearned": CheckpointManager(str(dele.cfg.output_dir)).restore_item("latest", "unet")})
     (f0, k0), (f1, k1) = probe["pretrain unet_ema"], probe["unlearned"]
     forget_ratio, keep_ratio = f1 / f0, k1 / k0
     pre_med, del_med = statistics.median(pre.step_seconds), statistics.median(dele.step_seconds)
@@ -1114,6 +1147,10 @@ def phase_tshirt(torch, card):
     print(f"t-shirt evaluations ({dele.cfg.eval_images} images, "
           f"{dele.cfg.pipeline.num_inference_steps}-step DDPM): seconds "
           f"{[round(x, 4) for x in dele.eval_seconds]}, deletion_class_fraction by step {fractions}")
+    for run in dele.likelihood_runs:
+        print(f"t-shirt likelihood (RK45, rtol = atol = 1e-5, one forget image) at step "
+              f"{run['step']}: {run['bpd']:.4f} bits/dim in {run['seconds']:.3f} s, nfe "
+              f"{run['nfe']} ({run['nfe'] // 6} steps, {7 * (run['nfe'] // 6)} ε-model calls)")
     print(f"t-shirt probe (ε-MSE at t = {TSHIRT_PROBE_T}, {TSHIRT_PROBE_N} images each): forget "
           f"{f0:.6f} → {f1:.6f} (ratio {forget_ratio:.4f}), keep {k0:.6f} → {k1:.6f} "
           f"(ratio {keep_ratio:.4f}); last step's metrics "
@@ -1122,6 +1159,137 @@ def phase_tshirt(torch, card):
     if not forget_ratio > keep_ratio:
         raise AssertionError(f"t-shirt: the forget-set ε-MSE ratio {forget_ratio:.4f} is not "
                              f"above the keep-set ratio {keep_ratio:.4f}")
+    return base, (forget_ratio, keep_ratio)
+
+
+# (label, deletion.loss_fn, overrides): the five other objectives, then SISS
+# off its fused path. The shipped config has no superfactor, which NegGrad
+# needs.
+TSHIRT_OBJECTIVES = (
+    ("double_forward_with_neg_del", "double_forward_with_neg_del", ()),
+    ("erasediff", "erasediff", ()),
+    ("simple_neg_del", "simple_neg_del",
+     ("+deletion.loss_params.superfactor=1.0", "deletion.superfactor_decay=0.99")),
+    ("naive_del", "naive_del", ()),
+    ("subscore_bernoulli", "subscore_bernoulli", ()),
+    ("siss_unfused", "importance_sampling_with_mixture", ("+deletion.fused_siss=false",)),
+)
+SCALAR_OBJECTIVES = ("simple_neg_del", "naive_del")
+# SISS's probe ratios as PERF.md §6 records them for this card, printed for
+# reference.
+SISS_RATIOS_RECORDED = (1.9161, 0.9852)
+# The unfused SISS step makes the fused one's draws and, but for the order
+# of its sums, its arithmetic: its probe ratios must land this close.
+UNFUSED_RATIO_RTOL = 0.05
+
+
+def phase_tshirt_objectives(torch, card, base, siss_ratios):
+    """Each other objective, and SISS unfused, for 30 steps at batch 64 from
+    the pretrain bundle, evaluations off: finite metrics, the surgery
+    objectives' scaling factor (> 0; ≤ 0 for EraseDiff) and none on the
+    scalar ones, no SISS kernel launch, and the probe ratios."""
+    from siss_tpu_torch import main as cli
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.utils import CheckpointManager
+
+    weights, report = {}, {}
+    for label, name, extra in TSHIRT_OBJECTIVES:
+        reset_launch_counts()
+        task = delete_tshirt(cli, base, TSHIRT_WORK / label, f"training_steps={TSHIRT_STEPS}",
+                             f"deletion.loss_fn={name}", "sampling_steps=0",
+                             "metrics.likelihood=null", *extra)
+        counts = dict(launch_counts)
+        if any(counts.values()):
+            raise AssertionError(f"t-shirt {label}: launch counts {counts}, expected none")
+        rows = [r for r in tshirt_rows(task) if "gradient/pre_clip_norm" in r]
+        if len(rows) != TSHIRT_STEPS:
+            raise AssertionError(f"t-shirt {label}: {len(rows)} step rows")
+        scaling = [r.get("gradient/scaling_factor") for r in rows]
+        if name in SCALAR_OBJECTIVES:
+            ok = all(s is None for s in scaling)
+        elif name == "erasediff":
+            ok = all(s is not None and s <= 0 for s in scaling)
+        else:
+            ok = all(s is not None and s > 0 for s in scaling)
+        if not ok:
+            raise AssertionError(f"t-shirt {label}: gradient/scaling_factor {scaling}")
+        weights[label] = CheckpointManager(str(task.cfg.output_dir)).restore_item("latest", "unet")
+        med = statistics.median(task.step_seconds)
+        report[label] = {"median_ms": med * 1e3, "img_per_s": int(task.cfg.train_batch_size) / med,
+                         "last": {k: v for k, v in rows[-1].items() if not k.startswith("_")}}
+
+    probe = tshirt_probe(torch, task, {"pretrain unet_ema": CheckpointManager(str(base))
+                                       .restore_item("latest", "unet_ema"), **weights})
+    f0, k0 = probe.pop("pretrain unet_ema")
+    print(f"t-shirt objectives ({card}), {TSHIRT_STEPS} steps at batch "
+          f"{task.cfg.train_batch_size} each; probe ratios (ε-MSE at t = "
+          f"{TSHIRT_PROBE_T}) beside fused SISS's {siss_ratios[0]:.4f} / {siss_ratios[1]:.4f} "
+          f"in phase 6 and {SISS_RATIOS_RECORDED[0]} / {SISS_RATIOS_RECORDED[1]} in PERF.md:")
+    for label, (f1, k1) in probe.items():
+        r = report[label]
+        r["forget_ratio"], r["keep_ratio"] = f1 / f0, k1 / k0
+        print(f"  {label}: median {r['median_ms']:.3f} ms = {r['img_per_s']:.1f} img/s, forget "
+              f"ratio {r['forget_ratio']:.4f}, keep ratio {r['keep_ratio']:.4f}; last step "
+              + json.dumps(r["last"], sort_keys=True))
+    unfused = report["siss_unfused"]
+    for got, want, what in ((unfused["forget_ratio"], siss_ratios[0], "forget"),
+                            (unfused["keep_ratio"], siss_ratios[1], "keep")):
+        if not abs(got - want) <= UNFUSED_RATIO_RTOL * want:
+            raise AssertionError(f"t-shirt: unfused SISS's {what} ratio {got:.4f} is not within "
+                                 f"{UNFUSED_RATIO_RTOL:.0%} of the fused run's {want:.4f}")
+
+
+CLASSIFIER_STEPS = 10
+# Membership and IS as the JAX task reads them (siss_tpu/tasks/delete_tshirt.py:
+# 127-163, 188-201); the shipped config leaves both off.
+TSHIRT_METRICS_ON = (
+    "metrics.inception_score={step_frequency: 5, num_imgs_to_generate: 512, batch_size: 128}",
+    "metrics.membership_loss={step_frequency: 5, timesteps: [100, 300, 500], class_cfg: "
+    "{num_image_samples: 64, num_noise_samples: 16, eval_batch_size: 512}}",
+    "metrics.classifier_cfg.classifier_args.num_classes=11",
+)
+
+
+def phase_classifier(torch, card, base):
+    """``--config-name=train_classifier`` as shipped, then 10 t-shirt steps
+    with the Inception Score over its checkpoint and the membership losses."""
+    from siss_tpu_torch import main as cli
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    (clf,) = cli.main(["--config-name=train_classifier", f"dataset.path={TSHIRT_DATA}",
+                       f"output_dir={TSHIRT_WORK / 'classifier'}"])
+    seconds = time.perf_counter() - t0
+    with open(Path(str(clf.cfg.output_dir)) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    acc = rows[-1]["final_accuracy"]
+    print(f"classifier ({card}): resnet18, {clf.cfg.num_classes} classes, "
+          f"{len(clf.step_seconds)} steps at batch {clf.cfg.train_batch_size} in {seconds:.2f} s "
+          f"(steps {sum(clf.step_seconds):.2f} s, median {statistics.median(clf.step_seconds) * 1e3:.3f} "
+          f"ms), final batch accuracy {acc:.4f}; accuracy by step "
+          + json.dumps([(r["_step"], round(r.get("accuracy", r.get("final_accuracy")), 4))
+                        for r in rows]))
+    if not acc > 0.9:
+        raise AssertionError(f"classifier: final accuracy {acc}")
+
+    reset_launch_counts()
+    task = delete_tshirt(cli, base, TSHIRT_WORK / "metrics", f"training_steps={CLASSIFIER_STEPS}",
+                         "sampling_steps=5", "metrics.likelihood=null", *TSHIRT_METRICS_ON,
+                         f"metrics.classifier_cfg.classifier_ckpt={clf.cfg.output_dir}")
+    counts = dict(launch_counts)
+    expected = {k: 0 for k in counts} | {"siss_reduce": CLASSIFIER_STEPS,
+                                         "siss_bwd": 2 * CLASSIFIER_STEPS}
+    if counts != expected:
+        raise AssertionError(f"t-shirt metrics run: launch counts {counts}, expected {expected}")
+    keys = ["metrics/is_mean", "metrics/is_std"] + [
+        f"membership_loss/{k}_t={t}" for t in (100, 300, 500) for k in ("all", "deletion", "ratio")]
+    evals = [r for r in tshirt_rows(task) if "metrics/deletion_class_fraction" in r]
+    if [r["_step"] for r in evals] != [0, 5, 10] or any(k not in r for r in evals for k in keys):
+        raise AssertionError(f"t-shirt metrics run: evaluations {evals}, expected {keys} "
+                             "at steps 0, 5 and 10")
+    for r in evals:
+        print(f"t-shirt IS and membership ({card}) at step {r['_step']}: "
+              + json.dumps({k: round(r[k], 6) for k in keys}))
 
 
 def main() -> int:
@@ -1155,7 +1323,9 @@ def main() -> int:
     record = phase_kernels(torch)
     record.update(phase_flash_kernels(torch))
     fp32_counts = phase_tiny_step_parity(torch)
-    phase_tshirt(torch, card)
+    base, siss_ratios = phase_tshirt(torch, card)
+    phase_tshirt_objectives(torch, card, base, siss_ratios)
+    phase_classifier(torch, card, base)
     celeb_counts = phase_main_path(torch)
     sd_counts = phase_sd_path(torch)
 

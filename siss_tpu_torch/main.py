@@ -3,7 +3,8 @@
 
     python3 -m siss_tpu_torch.main --config-name=train_tshirt_mnist [key=value ...]
     python3 -m siss_tpu_torch.main --config-name=delete_tshirt \\
-        checkpoint_path=<pretrain output_dir>/latest metrics.likelihood=null
+        checkpoint_path=<pretrain output_dir>/latest
+    python3 -m siss_tpu_torch.main --config-name=train_classifier
 
 Tasks run on ``--device`` (default ``cuda``; without a card that raises
 unless ``--device cpu`` is given). ``output_dir`` gets a timestamp and a

@@ -63,7 +63,7 @@ def build_optimizer(cfg: Any, params: Iterable[torch.nn.Parameter],
     for knob in ("mu_dtype", "nu_dtype"):
         if cfg.get(knob, None):
             raise NotImplementedError(
-                f"{knob} is not ported yet (ROADMAP Queue 1 item 6, optimizer state dtypes)")
+                f"{knob} is not ported yet (ROADMAP Queue 1 item 6b, optimizer state dtypes)")
     sched = build_lr_schedule(lr_scheduler, lr, warmup_steps, total_steps)
     params = list(params)
     name = target.rsplit(".", 1)[-1].lower()
@@ -74,7 +74,7 @@ def build_optimizer(cfg: Any, params: Iterable[torch.nn.Parameter],
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=sched(0), momentum=float(cfg.get("momentum", 0.0)))
     elif name == "adafactor":
-        raise NotImplementedError("adafactor is not ported yet (ROADMAP Queue 1 item 6)")
+        raise NotImplementedError("adafactor is not ported yet (ROADMAP Queue 1 item 6b)")
     else:
         raise ValueError(f"Unsupported optimizer target {target!r}")
     return opt, sched

@@ -227,8 +227,7 @@ def test_preemption_saves_and_stops(npz, base_run, tmp_path):
 
 
 def test_unported_options_raise(npz, base_run, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(delete_args(npz, tmp_path, base_run, "metrics.likelihood={step_frequency: 30}"))
+    # The likelihood metric is ported (tests/test_torch_tshirt_metrics.py).
     with pytest.raises(NotImplementedError, match="item 12"):
         cli.main(delete_args(npz, tmp_path, base_run, "mesh.fsdp=2"))
 

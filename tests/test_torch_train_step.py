@@ -205,20 +205,19 @@ def test_config_guards_match_jax(loss_fn, exc):
         DeletionStepConfig(loss_fn=loss_fn)
 
 
+# The SD options of ROADMAP item 6b. The other loss_fns, fused_siss=False
+# and fused_surgery=False are ported: tests/test_torch_objectives.py holds
+# them to the JAX step.
 @pytest.mark.parametrize("kwargs", [
-    dict(loss_fn="erasediff", loss_params=()),
-    dict(loss_fn="naive_del", loss_params=()),
-    dict(fused_siss=False),
     dict(noise_offset=0.1),
     dict(input_perturbation=0.1),
     dict(batched_dual_backward=True),
     dict(grad_accum_dtype="bfloat16"),
     dict(param_cast_dtype="bfloat16"),
-    dict(fused_surgery=False),
-], ids=lambda kw: next(iter(kw)) if "loss_fn" not in kw else kw["loss_fn"])
+], ids=lambda kw: next(iter(kw)))
 def test_unported_branches_raise(kwargs):
     cfg = DeletionStepConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
         build_deletion_train_step(linear_apply, NoiseSchedule.create(100, device="cpu"), cfg)
 
 

@@ -43,3 +43,45 @@ def torch_unet(kwargs, np_params):
     from siss_tpu_torch.utils.convert import load_flax_params
 
     return load_flax_params(UNet2D(UNet2DConfig(**kwargs)), np_params)
+
+
+# TinyEps: a two-convolution ε model with a timestep table, the same function
+# in JAX (jax_tiny_apply on a numpy param dict) and torch (TinyEps, params in
+# the same HWIO layout and names), for tests of the step's logic that need
+# no UNet: eps = conv2(silu(conv1(x) + b1 + temb[t])) + b2, NHWC.
+def tiny_params(seed=0, channels=2, width=8, T=1000):
+    """Numpy params of TinyEps: eps = conv2(silu(conv1(x) + temb[t]))."""
+    rng = np.random.default_rng(seed)
+    return {"w1": rng.normal(0, 0.3, (3, 3, channels, width)).astype(np.float32),
+            "b1": rng.normal(0, 0.1, (width,)).astype(np.float32),
+            "temb": rng.normal(0, 0.5, (T, width)).astype(np.float32),
+            "w2": rng.normal(0, 0.3, (3, 3, width, channels)).astype(np.float32),
+            "b2": rng.normal(0, 0.1, (channels,)).astype(np.float32)}
+
+
+def jax_tiny_apply(p, x, t, cond=None):
+    import jax
+
+    dn = ("NHWC", "HWIO", "NHWC")
+    h = jax.lax.conv_general_dilated(x, p["w1"], (1, 1), "SAME", dimension_numbers=dn)
+    h = jax.nn.silu(h + p["b1"] + p["temb"][t][:, None, None, :])
+    return jax.lax.conv_general_dilated(h, p["w2"], (1, 1), "SAME", dimension_numbers=dn) + p["b2"]
+
+
+class TinyEps(torch.nn.Module):
+    """TinyEps in torch, params in the same (HWIO) layout and names."""
+
+    def __init__(self, params):
+        super().__init__()
+        for k, v in params.items():
+            setattr(self, k, torch.nn.Parameter(torch.from_numpy(np.array(v))))
+
+    def forward(self, x, t):   # x NHWC
+        conv = lambda v, w: torch.nn.functional.conv2d(v, w.permute(3, 2, 0, 1), padding=1)  # noqa: E731
+        h = conv(x.permute(0, 3, 1, 2), self.w1) + self.b1[:, None, None]
+        h = torch.nn.functional.silu(h + self.temb[t][:, :, None, None])
+        return (conv(h, self.w2) + self.b2[:, None, None]).permute(0, 2, 3, 1)
+
+
+def tiny_apply(model, x, t, cond=None):
+    return model(x, t)
