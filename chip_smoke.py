@@ -21,14 +21,16 @@ prints no result):
    and dQ are gone.
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
-   (t = 999 noising and the keep/forget mixture), the same in bf16, the SD
+   (t = 999 noising and the keep/forget mixture), the same in bf16, the
+   shipped celeb task's microbatch [4, 256, 256, 3] with the same data in
+   fp32 and bf16, the SD
    step's shape [1, 64, 64, 4] fp32 with the SD schedule's t = 999 (one
    row split into 8 chunks), the t-shirt step's [64, 28, 28, 1] fp32 with
    t ~ U{0..999}, and ragged shapes (28×28×1, and 15×15×3, whose row
    length takes the one-element-per-load path). The reduce runs twice and
    must repeat bit for bit. Then time kernel and plain version at the
-   celeb, SD and t-shirt shapes, and an empty kernel launched the same way
-   (the launch floor, for 1 and 2 launches).
+   celeb, celeb task, SD and t-shirt shapes, and an empty kernel launched
+   the same way (the launch floor, for 1 and 2 launches).
 4. Hold the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card: o, lse, dq, dk and dv at the SD
    shapes (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) and at
@@ -89,6 +91,18 @@ prints no result):
    AdamW(5e-6, betas (0.95, 0.999), wd 1e-6), scaling_norm 500, λ 0.5,
    t ≡ 999, EMA; random weights from a seed; 1 warm-up and 3 timed steps.
    Each step must launch the reduce 4 times and the SISS backward 8 times.
+7b. The celeb task through ``siss_tpu_torch.main`` at full width
+   (``configs/delete_celeb.yaml``: celebahq_256, bs 4 × 16 accumulation
+   steps, bf16 autocast, t ≡ 999, evaluations every step: a 50-step DDPM
+   sample and the denoising injections at t = 250) on a folder of 64
+   random 256² JPEGs, random weights, 3 steps, with FID (16 samples, the
+   random-projection embedder: ``metrics/fid_rand``) at steps 0 and 3 and
+   membership at t = 250 on every evaluation. It must launch the reduce 48
+   and the SISS backward 96 times and log finite step metrics, both panels
+   and the membership keys at steps 0–3. Then InceptionV3 (``fid``
+   variant) on the card with the golden synthetic weights
+   (``tests/goldens/inception_fid_golden.npz``, TF32 off) must give the
+   recorded features within 1e-3, and is timed at batch 64 × 299².
 8. The SD main path at full width (``profile_step.make_sd_path``, the
    ``configs/delete_sd.yaml`` step of ``bench.py --workload sd`` with
    ``attention_impl="flash"``): the sd_v1 UNet, microbatch 1 × 16
@@ -131,6 +145,8 @@ BWD_FLOPS_PER_ELEM = 11        # 2 residuals, 2 eps, 2 weights, 1 add
 # microbatch; on the t-shirt unlearning step: 64 [28, 28, 1] images.
 SISS_SD_SHAPE = (1, 64, 64, 4)
 SISS_TSHIRT_SHAPE = (64, 28, 28, 1)
+# The shipped celeb task's microbatch (configs/delete_celeb.yaml: bs 4 × 16).
+SISS_CELEB_TASK_SHAPE = (4, 256, 256, 3)
 # (B, H, N, d): the SD UNet's flash sites (64×64 and 32×32 latents), then
 # a small head dim, the largest one, and one padded to a built head dim.
 FLASH_SD_SHAPES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
@@ -310,6 +326,10 @@ def phase_kernels(torch):
     errs = check_kernels(torch, "main fp32 [16,256,256,3]", big, gamma, sigma, 1e-5, 1e-3)
     bf, g_bf, s_bf = main_path_inputs(torch, celeb, main_shape, torch.bfloat16, seed=0)
     check_kernels(torch, "main bf16 [16,256,256,3]", bf, g_bf, s_bf, 1e-2, 1e-2)
+    task = main_path_inputs(torch, celeb, SISS_CELEB_TASK_SHAPE, torch.float32, seed=4)
+    check_kernels(torch, f"celeb task fp32 {list(SISS_CELEB_TASK_SHAPE)}", *task, 1e-5, 1e-3)
+    task_bf = main_path_inputs(torch, celeb, SISS_CELEB_TASK_SHAPE, torch.bfloat16, seed=4)
+    check_kernels(torch, f"celeb task bf16 {list(SISS_CELEB_TASK_SHAPE)}", *task_bf, 1e-2, 1e-2)
     # The SD step's operands: fp32 (the UNet's output type), SD schedule.
     sd = main_path_inputs(torch, sd_noise_schedule(device="cuda"), SISS_SD_SHAPE, torch.float32,
                           seed=2)
@@ -326,9 +346,10 @@ def phase_kernels(torch):
                               t_range=(0, 1000))
     check_kernels(torch, f"t-shirt fp32 {list(SISS_TSHIRT_SHAPE)}", *tshirt, 1e-5, 1e-3)
 
-    # The JSON record holds the celeb shape; the SD and t-shirt shapes' times
-    # are printed, beside the launch floor.
+    # The JSON record holds the celeb shape; the celeb task's, SD and t-shirt
+    # shapes' times are printed, beside the launch floor.
     record = siss_times(torch, big, gamma, sigma)
+    siss_times(torch, *task)
     siss_times(torch, *sd)
     siss_times(torch, *tshirt)
     floors = {n: statistics.median(launch_floor_ms(torch, n)) for n in (1, 2)}
@@ -1022,6 +1043,151 @@ def phase_sd_path(torch):
                       per_step, SD_MB * SD_ACCUM)
 
 
+CELEB_WORK = ROOT / "build" / "chip_smoke_celeb"
+CELEB_IMAGES, CELEB_SIZE, CELEB_STEPS = 64, 256, 3
+# FID at steps 0 and 3 over 16 samples (the random-projection embedder: the
+# repository holds no InceptionV3 weights), membership at t = 250 on every
+# evaluation; the shipped config leaves both off.
+CELEB_METRICS_ON = (
+    "metrics.fid={step_frequency: 3, num_imgs_to_generate: 16, batch_size: 8, "
+    "class_cfg: {inception_batch_size: 16}}",
+    "metrics.membership_loss={step_frequency: 1, timesteps: [250], class_cfg: "
+    "{num_image_samples: 8, num_noise_samples: 4, eval_batch_size: 32}}",
+)
+CELEB_STEP_KEYS = ("loss_x/mean", "importance_weight_x/mean", "gradient/scaling_factor",
+                   "images_per_sec")
+CELEB_EVAL_KEYS = ("Sampled Images/files", "Target Image Generations (t=250)/files",
+                   "membership_loss/all_membership_loss_t=250",
+                   "membership_loss/deletion_membership_loss_t=250",
+                   "membership_loss/membership_ratio_t=250")
+TOWER_GOLDENS = ROOT / "tests" / "tower_goldens.py"
+INCEPTION_GOLDEN = ROOT / "tests" / "goldens" / "inception_fid_golden.npz"
+INCEPTION_BATCH = 64
+
+
+def write_image_folder(root: Path, n: int, size: int) -> None:
+    """``n`` random size² RGB JPEGs named 10000.jpg, 10001.jpg, …"""
+    import numpy as np
+    from PIL import Image
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            root / f"{10000 + i}.jpg")
+
+
+def phase_celeb_task(torch, card):
+    """The shipped delete_celeb config through the port's command line at
+    full width for 3 steps, with FID and membership turned on."""
+    import shutil
+
+    from siss_tpu_torch import main as cli
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    shutil.rmtree(CELEB_WORK, ignore_errors=True)
+    write_image_folder(CELEB_WORK / "data", CELEB_IMAGES, CELEB_SIZE)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (task,) = cli.main(["--config-name=delete_celeb", f"data_dir={CELEB_WORK / 'data'}",
+                        f"output_dir={CELEB_WORK / 'out'}",
+                        f"checkpoint_path={CELEB_WORK / 'no_weights'}",
+                        f"training_steps={CELEB_STEPS}", *CELEB_METRICS_ON])
+    seconds = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    accum, bs = int(task.cfg.gradient_accumulation_steps), int(task.cfg.train_batch_size)
+    expected = {k: 0 for k in counts} | {"siss_reduce": CELEB_STEPS * accum,
+                                         "siss_bwd": 2 * CELEB_STEPS * accum}
+    if counts != expected:
+        raise AssertionError(f"celeb task: launch counts {counts}, expected {expected}")
+
+    with open(Path(str(task.cfg.output_dir)) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
+           if isinstance(v, (int, float)) and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"celeb task: non-finite metrics {bad}")
+    steps = [r for r in rows if "loss_x/mean" in r]
+    if ([r["_step"] for r in steps] != list(range(1, CELEB_STEPS + 1))
+            or any(k not in r for r in steps for k in CELEB_STEP_KEYS)
+            or not all(r["gradient/scaling_factor"] > 0 for r in steps)):
+        raise AssertionError(f"celeb task: step rows {steps}, expected {CELEB_STEP_KEYS} "
+                             f"(scaling factor > 0) at steps 1–{CELEB_STEPS}")
+    for key in CELEB_EVAL_KEYS:
+        if [r["_step"] for r in rows if key in r] != list(range(CELEB_STEPS + 1)):
+            raise AssertionError(f"celeb task: {key} not logged once at each of steps "
+                                 f"0–{CELEB_STEPS}")
+    fid = [(r["_step"], r["metrics/fid_rand"]) for r in rows if "metrics/fid_rand" in r]
+    if [s for s, _ in fid] != [0, CELEB_STEPS]:
+        raise AssertionError(f"celeb task: metrics/fid_rand by step {fid}, expected steps 0 "
+                             f"and {CELEB_STEPS}")
+
+    med = statistics.median(task.step_seconds)
+    print(f"celeb task ({card}): --config-name=delete_celeb, {CELEB_IMAGES} random "
+          f"{CELEB_SIZE}² JPEGs, random weights, {CELEB_STEPS} steps of bs {bs} x accum {accum} "
+          f"in {seconds:.2f} s: steps {[round(x, 4) for x in task.step_seconds]} s, median "
+          f"{med:.4f} s = {bs * accum / med:.2f} img/s, peak memory {peak / 2**30:.2f} GiB, "
+          f"launches {counts}")
+    for rec in task.eval_records:
+        parts = {k: round(v, 4) for k, v in rec.items() if k != "step"}
+        print(f"celeb task evaluation at step {rec['step']} (seconds; {task.cfg.eval_batch_size} "
+              f"sample of {task.cfg.pipeline.num_inference_steps} DDPM steps, injection of "
+              f"{int(task.cfg.metrics.denoising_injections.timestep) + 1} calls): "
+              + json.dumps(parts, sort_keys=True))
+    print("celeb task last step: " + json.dumps({k: steps[-1][k] for k in CELEB_STEP_KEYS},
+                                                sort_keys=True)
+          + "; membership and FID: " + json.dumps(
+              {f"{r['_step']} {k}": round(v, 6) for r in rows for k, v in r.items()
+               if k.startswith(("membership_loss/", "metrics/fid"))}, sort_keys=True))
+    inception_on_card(torch, card)
+
+
+def inception_on_card(torch, card):
+    """InceptionV3 (fid variant) with the golden synthetic weights against
+    the recorded features, then its time at batch 64 × 299²."""
+    import importlib.util
+
+    from siss_tpu_torch.metrics.inception_v3 import (InceptionV3Features, embedding_feature_fn,
+                                                     load_inception_state_dict)
+
+    # by its path: an installed package named ``tests`` may shadow the
+    # repository's directory
+    spec = importlib.util.spec_from_file_location("tower_goldens", TOWER_GOLDENS)
+    goldens = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(goldens)
+    meta, imgs, want = goldens.load_golden(INCEPTION_GOLDEN)
+    model = InceptionV3Features(variant="fid")
+    load_inception_state_dict(model, goldens.synth_state_dict(meta))
+    # the golden inputs are 299² in [−1, 1]: no resize, no range map
+    got = embedding_feature_fn(model, batch_input_range="11", device="cuda")(imgs)
+    want = torch.from_numpy(want).to(got.device)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3,
+                               msg=lambda m: f"InceptionV3 on the card vs golden: {m}")
+    err = float((got - want).abs().max())
+    x = (2 * torch.rand(INCEPTION_BATCH, 3, 299, 299, device="cuda") - 1).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        ms = statistics.median(gpu_ms(torch, lambda: model(x), launches=5, repeats=3))
+    # The bound: the convolutions' operations (2 per multiply-add) at the
+    # fp32 rate, counted on one image by forward hooks.
+    flops = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: flops.append(
+        2 * o.numel() * mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]))
+        for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(x[:1])
+    for h in hooks:
+        h.remove()
+    bound_ms = INCEPTION_BATCH * sum(flops) / H100_FP32_FLOPS * 1e3
+    print(f"InceptionV3 fid ({card}): golden features max_abs_err={err:.3e} (bound 1e-3 + 1e-3 "
+          f"relative); {ms:.3f} ms per batch of {INCEPTION_BATCH} at 299² "
+          f"({INCEPTION_BATCH / ms * 1e3:.1f} img/s, fp32, TF32 off); bound {bound_ms:.3f} ms "
+          f"({sum(flops) / 1e9:.3f} GFLOP an image at {H100_FP32_FLOPS / 1e12:.0f} TFLOP/s): "
+          f"{bound_ms / ms:.1%} of it")
+
+
 TSHIRT_DATA = ROOT / "data" / "datasets" / "mnist_with_tshirt.npz"
 TSHIRT_WORK = ROOT / "build" / "chip_smoke_tshirt"
 # The pretrain: 10 epochs of the 5,632 images at batch 128 (440 steps).
@@ -1327,6 +1493,7 @@ def main() -> int:
     phase_tshirt_objectives(torch, card, base, siss_ratios)
     phase_classifier(torch, card, base)
     celeb_counts = phase_main_path(torch)
+    phase_celeb_task(torch, card)
     sd_counts = phase_sd_path(torch)
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash

@@ -1,5 +1,6 @@
 """Datasets with keep/forget filtering: port of ``siss_tpu/data/datasets.py``
-for the labelled-image sets of the t-shirt task.
+for the labelled-image sets of the t-shirt task and the image folders of the
+celeb task.
 
 Images come back as float32 NHWC numpy arrays, as in the JAX package;
 ``normalize_to_unit_range`` maps uint8 [0, 255] to [-1, 1] (ToTensor +
@@ -9,7 +10,8 @@ class to remove) and ``nondeletion`` (everything else).
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,6 +29,48 @@ def normalize_to_unit_range(img: np.ndarray) -> np.ndarray:
 
 def _to_nhwc(img: np.ndarray) -> np.ndarray:
     return img[..., None] if img.ndim == 2 else img
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file decoded with PIL, as its stored array (uint8 [H, W] or
+    [H, W, C])."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img)
+
+
+class ImageFolderDataset:
+    """A folder of images (CelebA-HQ style). ``filter``: ``all`` lists the
+    folder's images (sorted), ``deletion`` takes ``remove_img_names`` as they
+    are, ``nondeletion`` the folder's images less those."""
+
+    def __init__(self, filter: str, data_path: str,
+                 remove_img_names: Optional[Sequence[str]] = None, normalize: bool = True,
+                 extensions: Tuple[str, ...] = (".jpg", ".jpeg", ".png")):
+        self.data_path = data_path
+        files = sorted(f for f in os.listdir(data_path) if f.lower().endswith(extensions))
+        if filter == "all":
+            self.image_files = files
+        elif filter in ("deletion", "nondeletion"):
+            if remove_img_names is None:
+                raise ValueError(f"{filter.capitalize()} filter requires removal class to be "
+                                 "specified.")
+            if filter == "deletion":
+                self.image_files = list(remove_img_names)
+            else:
+                remove = set(remove_img_names)
+                self.image_files = [f for f in files if f not in remove]
+        else:
+            raise ValueError("Invalid filter.")
+        self.normalize = normalize
+
+    def __len__(self) -> int:
+        return len(self.image_files)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        img = _to_nhwc(read_image(os.path.join(self.data_path, self.image_files[idx])))
+        return normalize_to_unit_range(img) if self.normalize else np.asarray(img, np.float32)
 
 
 class ArrayDataset:

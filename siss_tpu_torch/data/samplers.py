@@ -1,8 +1,9 @@
-"""Endless shuffled index stream: port of ``siss_tpu/data/samplers.py``'s
-``InfiniteSampler``.
+"""Index streams: port of ``siss_tpu/data/samplers.py``'s
+``InfiniteSampler`` and ``RepeatedSampler``.
 
-It draws from numpy's ``default_rng`` exactly as the JAX package does, so the
-two give the same indices for the same seed, bit for bit.
+``InfiniteSampler`` draws from numpy's ``default_rng`` exactly as the JAX
+package does, so the two give the same indices for the same seed, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -68,3 +69,20 @@ class InfiniteSampler:
             if pos % self.num_replicas == self.rank:
                 yield out
             pos += 1
+
+
+class RepeatedSampler:
+    """Each index of ``range(dataset_len)`` ``num_repeats`` times in a row,
+    then the next: several forget images are forgotten one after another."""
+
+    def __init__(self, dataset_len: int, num_repeats: int):
+        self.dataset_len = dataset_len
+        self.num_repeats = num_repeats
+
+    def __len__(self) -> int:
+        return self.dataset_len * self.num_repeats
+
+    def __iter__(self) -> Iterator[int]:
+        for i in range(self.dataset_len):
+            for _ in range(self.num_repeats):
+                yield i

@@ -67,10 +67,10 @@ class Evaluator:
 
     def denoise_images(self, model, noisy_image_batch, timestep: int,
                        set_generator: bool = True) -> np.ndarray:
-        """Reverse-diffuse a noised NHWC batch from ``timestep`` to 0; numpy
-        NHWC in [0, 1]."""
+        """Reverse-diffuse a noised NHWC batch (array or tensor) from
+        ``timestep`` to 0; numpy NHWC in [0, 1]."""
         device = self.schedule.gamma.device
-        x_t = torch.as_tensor(np.asarray(noisy_image_batch), device=device)
+        x_t = torch.as_tensor(noisy_image_batch, device=device)
         if self.solver == "dpm":
             out = denoise_from_t_dpm(self._eps_fn(model), self.schedule, x_t, int(timestep),
                                      num_inference_steps=self.injection_steps)

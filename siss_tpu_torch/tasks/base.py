@@ -26,7 +26,7 @@ from siss_tpu_torch.device import resolve_device
 from siss_tpu_torch.diffusion import NoiseSchedule
 from siss_tpu_torch.models import UNet2D, UNet2DConfig, build_unet
 from siss_tpu_torch.train.state import TrainState
-from siss_tpu_torch.utils import Tracker
+from siss_tpu_torch.utils import CheckpointManager, Tracker
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -124,6 +124,28 @@ class Task(abc.ABC):
                 images, labels = make_synthetic_mnist_tshirt(n_per_class=256)
                 np.savez_compressed(path, images=images, labels=labels)
         return instantiate(node)
+
+    def load_bundle_unet(self, model: torch.nn.Module, path: str) -> None:
+        """Load ``model`` from a bundle, ``…/checkpoint-<n>`` or
+        ``<run dir>/latest``: its ``subfolders.unet`` item (``unet`` when
+        the config names none)."""
+        path = path.rstrip("/")
+        root, leaf = os.path.split(path)
+        mgr = CheckpointManager(root if leaf == "latest" else os.path.dirname(path) or ".")
+        subfolder = str((self.cfg.get("subfolders") or {}).get("unet") or "unet")
+        model.load_state_dict(mgr.restore_item("latest" if leaf == "latest" else path, subfolder))
+
+    def build_classifier(self):
+        """The ``metrics.classifier_cfg`` classifier on the task's device:
+        ``classifier_arch(**classifier_args)`` with the weights of
+        ``classifier_ckpt``. Raises when it cannot be built."""
+        from siss_tpu_torch.metrics import Classifier, load_classifier_state
+
+        clf_cfg = self.cfg.metrics.classifier_cfg
+        model = get_object(str(clf_cfg.classifier_arch))(
+            **to_dict(clf_cfg.get("classifier_args") or {}))
+        model.load_state_dict(load_classifier_state(str(clf_cfg.classifier_ckpt)))
+        return Classifier(model.to(self.device))
 
     def to_device(self, batch: np.ndarray) -> torch.Tensor:
         """A host batch on the task's device (pinned, asynchronous copy)."""

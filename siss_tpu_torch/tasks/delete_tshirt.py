@@ -7,7 +7,8 @@ timesteps), starting from the pretrain bundle's ``unet_ema`` weights. Every
 the t-shirt fraction from the L2 detector, and the first step at which that
 fraction is 0 goes into the summary as ``deletion_steps``. Within those
 evaluations, each on its own ``step_frequency``: the exact likelihood (RK45
-on the probability-flow ODE) of the first forget image, the membership
+on the probability-flow ODE) of the first forget image, a fresh Hutchinson
+probe each time from one generator seeded once, the membership
 losses at ``metrics.membership_loss.timesteps``, and the Inception Score of
 the samples with the deleted class removed (disabled, with a message, when
 the classifier checkpoint is missing or does not fit).
@@ -27,12 +28,12 @@ import time
 import numpy as np
 import torch
 
-from siss_tpu_torch.config import get_object, to_dict
-from siss_tpu_torch.data import BatchLoader, InfiniteSampler, dual_stream
+from siss_tpu_torch.config import to_dict
+from siss_tpu_torch.data import BatchLoader, InfiniteSampler, dual_stream, read_image
 from siss_tpu_torch.diffusion.sde import VPSDE
 from siss_tpu_torch.evaluate import Evaluator
-from siss_tpu_torch.metrics import (Classifier, InceptionScore, LikelihoodEvaluator,
-                                    MembershipLoss, TShirtClassifier, load_classifier_state)
+from siss_tpu_torch.metrics import (InceptionScore, LikelihoodEvaluator, MembershipLoss,
+                                    TShirtClassifier)
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, unet_eps_apply)
@@ -40,9 +41,7 @@ from siss_tpu_torch.utils import CheckpointManager, PreemptionGuard
 
 
 def _read_png(path: str) -> np.ndarray:
-    from PIL import Image
-
-    img = np.asarray(Image.open(path), np.float32) / 255.0
+    img = read_image(path).astype(np.float32) / 255.0
     return img[..., None] if img.ndim == 2 else img
 
 
@@ -62,12 +61,7 @@ class DeleteTShirt(Task):
 
         # The pretrained start: the bundle's subfolder (unet_ema by default).
         if cfg.get("checkpoint_path"):
-            path = str(cfg.checkpoint_path).rstrip("/")
-            root, leaf = os.path.split(path)
-            mgr = CheckpointManager(root if leaf == "latest" else os.path.dirname(path) or ".")
-            subfolder = str(cfg.subfolders.get("unet", "unet"))
-            model.load_state_dict(mgr.restore_item("latest" if leaf == "latest" else path,
-                                                   subfolder))
+            self.load_bundle_unet(model, str(cfg.checkpoint_path))
 
         training_steps = int(cfg.training_steps)
         opt, lr_schedule = build_optimizer(cfg.optimizer, model.parameters(),
@@ -116,6 +110,8 @@ class DeleteTShirt(Task):
         if likelihood_cfg:
             likelihood = LikelihoodEvaluator(unet_eps_apply, VPSDE(), schedule=schedule,
                                              method="rk45", random_seed=seed, device=self.device)
+        # One probe generator for the run: each evaluation draws a fresh probe.
+        likelihood_gen = torch.Generator(device=self.device).manual_seed(seed)
 
         membership_cfg = metrics_cfg.get("membership_loss")
         membership = None
@@ -157,7 +153,7 @@ class DeleteTShirt(Task):
                 forget_img = self.to_device(np.asarray(dataset_deletion[0])[None])
                 seconds = []
                 bpd, _, nfe = self.timed(seconds, likelihood.evaluate_likelihood, model,
-                                         forget_img)
+                                         forget_img, generator=likelihood_gen)
                 m["metrics/likelihood"] = float(bpd.mean())
                 self.likelihood_runs.append({"step": step, "seconds": seconds[0], "nfe": nfe,
                                              "bpd": m["metrics/likelihood"]})
@@ -253,12 +249,8 @@ class DeleteTShirt(Task):
         """The Inception Score over ``metrics.classifier_cfg``'s classifier,
         or None (with the JAX package's message) when its checkpoint is
         missing or does not fit."""
-        clf_cfg = cfg.metrics.classifier_cfg
         try:
-            arch = get_object(str(clf_cfg.classifier_arch))
-            model = arch(**to_dict(clf_cfg.get("classifier_args") or {}))
-            model.load_state_dict(load_classifier_state(str(clf_cfg.classifier_ckpt)))
-            return InceptionScore(Classifier(model.to(self.device)),
+            return InceptionScore(self.build_classifier(),
                                   remove_class=int(cfg.deletion.class_label))
         except Exception as e:
             print(f"[delete_tshirt] inception classifier unavailable ({e}); IS disabled")

@@ -109,6 +109,37 @@ def test_shipped_metrics_block_logs_the_likelihood(npz, base, tmp_path):
     assert run["nfe"] > 0 and run["nfe"] % 6 == 0 and run["bpd"] == lik[0][1]
 
 
+def test_each_likelihood_evaluation_draws_a_fresh_probe(npz, base, tmp_path, monkeypatch):
+    """Two likelihood evaluations in one run (steps 0 and 1) draw different
+    Hutchinson probes from the task's one generator, as the JAX package
+    draws a fresh key for each call; the first is the probe of a generator
+    seeded with random_seed. One Euler step stands in for RK45 to keep the
+    run short."""
+    import torch
+
+    from siss_tpu_torch.metrics import likelihood as lik
+
+    probes = []
+    draw = lik.LikelihoodEvaluator.draw_probe
+
+    def recording_draw(self, shape, generator):
+        probes.append(draw(self, shape, generator))
+        return probes[-1]
+
+    def one_euler_step(f, y0, t0, t1, **kw):
+        return tuple(y + (t1 - t0) * d for y, d in zip(y0, f(tuple(y0), np.float32(t0)))), 6
+
+    monkeypatch.setattr(lik.LikelihoodEvaluator, "draw_probe", recording_draw)
+    monkeypatch.setattr(lik, "odeint_rk45", one_euler_step)
+    task, rows = delete(npz, base, tmp_path, "training_steps=1", "sampling_steps=1",
+                        "metrics.likelihood.step_frequency=1")
+    assert [r["_step"] for r in rows if "metrics/likelihood" in r] == [0, 1]
+    assert len(probes) == 2 and not torch.equal(probes[0], probes[1])
+    seeded = torch.Generator().manual_seed(int(task.cfg.random_seed))
+    assert torch.equal(probes[0], draw(lik.LikelihoodEvaluator(None, device="cpu"),
+                                       probes[0].shape, seeded))
+
+
 @pytest.mark.parametrize("loss_fn", LOSS_FUNCTIONS)
 def test_every_objective_runs_in_the_task(npz, base, tmp_path, loss_fn):
     """Each deletion.loss_fn through the task logs the JAX step's keys."""
