@@ -33,8 +33,9 @@ prints no result):
    the same way (the launch floor, for 1 and 2 launches).
 4. Hold the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card: o, lse, dq, dk and dv at the SD
-   shapes (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80) and at
-   (2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24) (d padded to 40),
+   shapes (B, H, N, d) = (1, 8, 4096, 40) and (1, 8, 1024, 80), at the
+   SD validation's batch-2 CFG shapes (2, 8, 4096, 40) and (2, 8, 1024, 80),
+   and at (2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24) (d padded to 40),
    (4, 12, 384, 40) (three 128-row tiles, two consumer warpgroups) and
    (2, 3, 256, 40), each in fp32 and bf16, with the operands in the UNet's
    strided [B, N, H, d] layout, and (2, 3, 256, 40) once more with
@@ -109,14 +110,33 @@ prints no result):
    accumulation steps; 1 warm-up and 2 timed steps. Each step must launch
    flash_fwd 160, flash_bwd_dkv 320, flash_bwd_dq 320, siss_reduce 16 and
    siss_bwd 32 times.
+8b. The SD task through ``siss_tpu_torch.main`` at full width
+   (``configs/delete_sd.yaml``: the sd_v1 UNet, the SD-1 VAE and the CLIP
+   ViT-L/14 text tower, resolution 512, bs 1 × 16, bf16, the latent cache
+   on ``auto``, ``random_flip``, a validation every step: CFG DDIM at
+   guidance 7.5 with noise norms, its 50 steps cut to 25) with
+   ``attention_impl=flash``, 3 steps and ``eval_batches=1``, on 16 random 512² PNGs under
+   ``build/chip_smoke_sd/`` with their side files, two prompt files and a
+   synthetic byte-level CLIP vocabulary (random weights: the pretrained
+   directory holds only ``tokenizer/``); then 1 step from a fresh output
+   directory with ``cache_latents=false`` (the VAE encodes in the step).
+   Each run must launch siss_reduce 16, siss_bwd 32, flash_bwd_dkv and
+   flash_bwd_dq 320 times a step, and flash_fwd 160 a step plus 10 a CFG
+   UNet call; log finite step metrics at image counts 16, 32 and 48, both
+   prompts' panels and noise-norm line series at every validation (one
+   curve more each time) and read ``frac_deletion`` = 1/16. It prints the
+   set-up, step and validation seconds, peak memory and each run's
+   launches on a line of their own, then times the VAE encode and decode
+   of one 512² image and the CLIP text tower on one prompt beside the
+   bound of their convolution and matmul operations at the bf16 rate.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
-kernel's launches on the path that runs it (the bf16 flash kernels on the
-SD path, the fp32 forward, dK/dV and dQ, ``flash_fwd_fp32``,
-``flash_bwd_dkv_fp32`` and ``flash_bwd_dq_fp32``, on phase 5's tiny SD
-step),
-its times at the heaviest SD site and its error; the last line is
+kernel's launches on the path that runs it (the SISS kernels on the celeb
+path, the bf16 flash kernels on the SD path of phase 8, the fp32 forward,
+dK/dV and dQ, ``flash_fwd_fp32``, ``flash_bwd_dkv_fp32`` and
+``flash_bwd_dq_fp32``, on phase 5's tiny SD step; phase 8b's counts are
+printed on lines of their own), its times at the heaviest SD site and its error; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -150,8 +170,10 @@ SISS_CELEB_TASK_SHAPE = (4, 256, 256, 3)
 # (B, H, N, d): the SD UNet's flash sites (64×64 and 32×32 latents), then
 # a small head dim, the largest one, and one padded to a built head dim.
 FLASH_SD_SHAPES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
+# The SD validation's CFG UNet calls run the forward at batch 2.
+FLASH_CFG_SHAPES = ((2, 8, 4096, 40), (2, 8, 1024, 80))
 FLASH_SHAPES = FLASH_SD_SHAPES + ((2, 4, 256, 8), (1, 2, 128, 128), (1, 2, 128, 24),
-                                  (4, 12, 384, 40), (2, 3, 256, 40))
+                                  (4, 12, 384, 40), (2, 3, 256, 40)) + FLASH_CFG_SHAPES
 # Matrix-product operations per B·H·N²·d of each flash kernel (2 per
 # multiply-add): the forward's S and P·V; dK/dV recomputes S and dP and
 # forms dV and dK; dQ recomputes S and dP and forms dQ.
@@ -1188,6 +1210,218 @@ def inception_on_card(torch, card):
           f"{bound_ms / ms:.1%} of it")
 
 
+SD_WORK = ROOT / "build" / "chip_smoke_sd"
+SD_IMAGES, SD_SIZE, SD_STEPS = 16, 512, 3
+# The shipped validation sampler takes 50 steps; cut to 25 since the whole
+# script reached ~600 s (PERF.md §4 names the cut).
+SD_INFERENCE_STEPS = 25
+SD_IMAGES_NAME = "sylvester_stallone"   # configs/delete_sd.yaml's images_name
+SD_STEP_KEYS = ("loss_x/mean", "importance_weight_x/mean", "gradient/scaling_factor",
+                "images_per_sec")
+# Flash sites of the sd_v1 UNet: 10 self-attentions a forward (5 at 64×64
+# latents, 5 at 32×32), each differentiated by both pulls.
+SD_FLASH_SITES = 10
+SD_PROMPT_TOKENS = 77
+
+
+def write_sd_dataset(root: Path, n: int, size: int) -> None:
+    """An SD task's data under ``root``: ``images/`` of ``n`` random size²
+    PNGs (``img_0.png`` memorised), ``kmeans_labels.json``,
+    ``clustering_info.json``, two prompt files keyed by the config's
+    ``images_name``, and ``pretrained/tokenizer/`` holding a synthetic CLIP
+    byte-level vocabulary (256 byte symbols, each with ``</w>``, a few
+    merges, BOS and EOS: every id below 49,408) and nothing else, so the
+    towers and UNet start from random weights."""
+    import numpy as np
+    from PIL import Image
+
+    from siss_tpu_torch.models.clip_bpe import bytes_to_unicode
+
+    (root / "images").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    labels = {}
+    for i in range(n):
+        name = f"img_{i}.png"
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            root / "images" / name)
+        labels[name] = int(i == 0)
+    (root / "kmeans_labels.json").write_text(json.dumps(labels))
+    (root / "clustering_info.json").write_text(
+        json.dumps({"frac_deletion": 1 / n, "mem_img_name": "img_0.png"}))
+    (root / "og_prompts.json").write_text(
+        json.dumps({SD_IMAGES_NAME: "a photo of sylvester stallone"}))
+    (root / "modified_prompts.json").write_text(
+        json.dumps({SD_IMAGES_NAME: "a painting of a man on a beach"}))
+    syms = [bytes_to_unicode()[b] for b in range(256)]
+    merges = ["p h", "ph o", "t o</w>", "pho t", "phot o</w>", "o f</w>", "a n</w>", "t h",
+              "th e</w>"]
+    vocab = {s: i for i, s in enumerate(syms + [s + "</w>" for s in syms]
+                                        + ["".join(m.split()) for m in merges]
+                                        + ["<|startoftext|>", "<|endoftext|>"])}
+    tok = root / "pretrained" / "tokenizer"
+    tok.mkdir(parents=True)
+    (tok / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (tok / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n",
+                                    encoding="utf-8")
+
+
+def sd_task_run(torch, cli, label, steps, *extra):
+    """One ``--config-name=delete_sd`` run on ``SD_WORK`` with the launch
+    counts set to 0 just before it; returns (task, counts, seconds, peak)."""
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (task,) = cli.main(["--config-name=delete_sd", f"base_dir={SD_WORK}",
+                        f"output_dir={SD_WORK / ('out_' + label)}",
+                        f"pretrained_model_name_or_path={SD_WORK / 'pretrained'}",
+                        f"og_prompts_path={SD_WORK / 'og_prompts.json'}",
+                        f"modified_prompts_path={SD_WORK / 'modified_prompts.json'}",
+                        "attention_impl=flash", f"training_steps={steps}", "eval_batches=1",
+                        f"num_inference_steps={SD_INFERENCE_STEPS}", *extra])
+    seconds = time.perf_counter() - t0
+    return task, dict(launch_counts), seconds, torch.cuda.max_memory_allocated()
+
+
+def check_sd_run(task, label, steps, counts):
+    """Exact launch counts, finite step metrics at image counts, both
+    prompts' panels and growing noise-norm series at every validation, and
+    ``frac_deletion`` from the side file."""
+    cfg = task.cfg
+    accum, bs = int(cfg.gradient_accumulation_steps), int(cfg.train_batch_size)
+    prompts, n_inf = len(cfg.validation_prompts), int(cfg.num_inference_steps)
+    cfg_calls = steps * prompts * int(cfg.eval_batches) * n_inf   # one validation a step
+    expected = {k: 0 for k in counts} | {
+        "siss_reduce": steps * accum, "siss_bwd": 2 * steps * accum,
+        "flash_fwd": steps * SD_FLASH_SITES * accum + SD_FLASH_SITES * cfg_calls,
+        "flash_bwd_dkv": 2 * steps * SD_FLASH_SITES * accum,
+        "flash_bwd_dq": 2 * steps * SD_FLASH_SITES * accum}
+    if counts != expected:
+        raise AssertionError(f"SD task ({label}): launch counts {counts}, expected {expected}")
+    if cfg.deletion.frac_deletion != 1 / SD_IMAGES:
+        raise AssertionError(f"SD task ({label}): frac_deletion {cfg.deletion.frac_deletion}")
+    with open(Path(str(cfg.output_dir)) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    images = [bs * accum * (i + 1) for i in range(steps)]
+    step_rows = [r for r in rows if "loss_x/mean" in r]
+    if ([r["_step"] for r in step_rows] != images
+            or any(not math.isfinite(r[k]) for r in step_rows for k in SD_STEP_KEYS)
+            or not all(r["gradient/scaling_factor"] > 0 for r in step_rows)):
+        raise AssertionError(f"SD task ({label}): step rows {step_rows}, expected finite "
+                             f"{SD_STEP_KEYS} (scaling factor > 0) at image counts {images}")
+    for pi in range(prompts):
+        panels = [r["_step"] for r in rows if f"Generated Images (prompt {pi})/files" in r]
+        series = [r for r in rows if r.get("_name") == f"noise_norms/noise_norms_{pi}"]
+        if (panels != images or [r["_step"] for r in series] != images
+                or [len(r["ys"]) for r in series] != list(range(1, steps + 1))
+                or any(len(ys) != n_inf or not all(math.isfinite(v) for v in ys)
+                       for r in series for ys in r["ys"])):
+            raise AssertionError(f"SD task ({label}): prompt {pi} panels at {panels}, noise-norm "
+                                 f"series {[(r['_step'], len(r['ys'])) for r in series]}; "
+                                 f"expected one of each at {images}, one curve more each time")
+    return step_rows
+
+
+def count_tower_flops(torch, models, fn):
+    """Operations (2 per multiply-add) of one ``fn()`` through ``models``,
+    counted from the shapes by forward hooks: convolutions, and matmuls
+    (linear layers and the attention products QKᵀ and P·V)."""
+    from siss_tpu_torch.models.clip_text import CLIPAttention
+    from siss_tpu_torch.models.layers import SpatialAttention
+
+    flops = {"conv": 0, "matmul": 0}
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            flops["conv"] += 2 * out.numel() * mod.in_channels * math.prod(mod.kernel_size)
+        elif isinstance(mod, torch.nn.Linear):
+            flops["matmul"] += 2 * out.numel() * mod.in_features
+        elif isinstance(mod, SpatialAttention):   # one head over the H·W tokens
+            B, C, H, W = inp[0].shape
+            flops["matmul"] += 4 * B * (H * W) ** 2 * C
+        elif isinstance(mod, CLIPAttention):
+            B, N, D = inp[0].shape
+            flops["matmul"] += 4 * B * N * N * D
+
+    kinds = (torch.nn.Conv2d, torch.nn.Linear, SpatialAttention, CLIPAttention)
+    hooks = [m.register_forward_hook(count) for model in models for m in model.modules()
+             if isinstance(m, kinds)]
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return flops
+
+
+def tower_times(torch, card):
+    """The SD-1 VAE's encode and decode of one 512² image and the CLIP text
+    tower on one 77-token prompt, in bf16 autocast as the task runs them,
+    random weights: ms a call beside the bound of their convolution and
+    matmul operations at the bf16 tensor-core rate."""
+    from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig, build_clip_text,
+                                       build_vae)
+
+    vae = build_vae(AutoencoderKLConfig.sd_v1(), dtype=torch.bfloat16).requires_grad_(False)
+    text = build_clip_text(CLIPTextConfig.sd_v1(), dtype=torch.bfloat16).requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = 2 * torch.rand(1, SD_SIZE, SD_SIZE, 3, generator=gen, device="cuda") - 1
+    z = torch.randn(1, SD_SIZE // 8, SD_SIZE // 8, 4, generator=gen, device="cuda")
+    ids = torch.randint(0, 49408, (1, SD_PROMPT_TOKENS), generator=gen, device="cuda")
+    calls = {"VAE encode (512², one image)": (vae, lambda: vae.encode_moments(x)),
+             "VAE decode (512², one image)": (vae, lambda: vae.decode(z)),
+             "CLIP text (one 77-token prompt)": (text, lambda: text(ids))}
+    for name, (model, fn) in calls.items():
+        flops = count_tower_flops(torch, (model,), fn)
+        with torch.inference_mode():
+            ms = statistics.median(gpu_ms(torch, fn, launches=5, repeats=3))
+        bound = (flops["conv"] + flops["matmul"]) / H100_BF16_FLOPS * 1e3
+        print(f"{name} ({card}; bf16 autocast, TF32 off): {ms:.3f} ms; conv "
+              f"{flops['conv'] / 1e9:.3f} + matmul {flops['matmul'] / 1e9:.3f} GFLOP, bound "
+              f"{bound:.4f} ms at {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s: {bound / ms:.1%} of it")
+
+
+def phase_sd_task(torch, card):
+    """The shipped delete_sd config through the port's command line at full
+    width: 3 steps with the latent cache, then 1 step from a fresh output
+    directory encoding in the step (``cache_latents=false``)."""
+    import shutil
+
+    from siss_tpu_torch import main as cli
+
+    shutil.rmtree(SD_WORK, ignore_errors=True)
+    write_sd_dataset(SD_WORK, SD_IMAGES, SD_SIZE)
+    for label, steps, extra in (("cached", SD_STEPS, ()),
+                                ("uncached", 1, ("cache_latents=false",))):
+        task, counts, seconds, peak = sd_task_run(torch, cli, label, steps, *extra)
+        check_sd_run(task, label, steps, counts)
+        cfg = task.cfg
+        accum, bs = int(cfg.gradient_accumulation_steps), int(cfg.train_batch_size)
+        med = statistics.median(task.step_seconds)
+        setup = {k: round(v, 3) for k, v in task.setup_seconds.items()}
+        print(f"SD task {label} ({card}): --config-name=delete_sd, {SD_IMAGES} random "
+              f"{SD_SIZE}² PNGs, random weights, attention_impl=flash, {steps} steps of bs {bs} "
+              f"x accum {accum} in {seconds:.2f} s: set-up {json.dumps(setup)} s, steps "
+              f"{[round(s, 4) for s in task.step_seconds]} s, median {med:.4f} s = "
+              f"{bs * accum / med:.2f} img/s, peak memory {peak / 2**30:.2f} GiB")
+        print(f"SD task {label} launches: " + json.dumps(counts, sort_keys=True))
+        for rec in task.eval_records:
+            parts = {k: round(v, 4) for k, v in rec.items() if k != "step"}
+            print(f"SD task {label} validation at step {rec['step']} (seconds; "
+                  f"{len(cfg.validation_prompts)} prompts x {cfg.eval_batches} CFG sample of "
+                  f"{cfg.num_inference_steps} DDIM steps at batch 2): "
+                  + json.dumps(parts, sort_keys=True))
+        rows = [json.loads(line) for line in open(Path(str(cfg.output_dir)) / "metrics.jsonl")]
+        last = [r for r in rows if "loss_x/mean" in r][-1]
+        print(f"SD task {label} last step: "
+              + json.dumps({k: last[k] for k in SD_STEP_KEYS}, sort_keys=True))
+        del task
+    tower_times(torch, card)
+
+
 TSHIRT_DATA = ROOT / "data" / "datasets" / "mnist_with_tshirt.npz"
 TSHIRT_WORK = ROOT / "build" / "chip_smoke_tshirt"
 # The pretrain: 10 epochs of the 5,632 images at batch 128 (440 steps).
@@ -1495,6 +1729,7 @@ def main() -> int:
     celeb_counts = phase_main_path(torch)
     phase_celeb_task(torch, card)
     sd_counts = phase_sd_path(torch)
+    phase_sd_task(torch, card)
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed

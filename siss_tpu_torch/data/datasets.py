@@ -1,6 +1,6 @@
 """Datasets with keep/forget filtering: port of ``siss_tpu/data/datasets.py``
-for the labelled-image sets of the t-shirt task and the image folders of the
-celeb task.
+for the labelled-image sets of the t-shirt task, the image folders of the
+celeb task and the labelled image folders of the SD task (``SDData``).
 
 Images come back as float32 NHWC numpy arrays, as in the JAX package;
 ``normalize_to_unit_range`` maps uint8 [0, 255] to [-1, 1] (ToTensor +
@@ -10,8 +10,9 @@ class to remove) and ``nondeletion`` (everything else).
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -113,3 +114,42 @@ class LabeledImageDataset(ArrayDataset):
                  normalize: bool = True) -> "LabeledImageDataset":
         with np.load(path) as data:
             return cls(filter, data["images"], data["labels"], class_to_remove, normalize)
+
+
+class SDData:
+    """An image folder and a JSON label file (k-means labels: memorised 1,
+    not 0), read in the file's key order; items are ``(image, label)``.
+    ``filter``: ``all``, ``deletion`` (label 1) or ``nondeletion`` (label
+    0). Images whose size is not ``resolution``² are resized with PIL's
+    bilinear filter."""
+
+    def __init__(self, filter: str, img_dir: str, labels_fpath: str, normalize: bool = True,
+                 resolution: Optional[int] = None):
+        with open(labels_fpath, "r") as f:
+            labels = json.load(f)
+        all_names = list(labels.keys())
+        all_labels = np.asarray(list(labels.values()))
+        if filter == "all":
+            idx = np.arange(all_labels.shape[0])
+        elif filter in ("deletion", "nondeletion"):
+            idx = np.where(all_labels == (1 if filter == "deletion" else 0))[0]
+        else:
+            raise ValueError("Invalid filter.")
+        self.img_dir = img_dir
+        self.img_names: List[str] = [all_names[i] for i in idx]
+        self.img_labels = all_labels[idx]
+        self.normalize = normalize
+        self.resolution = resolution
+
+    def __len__(self) -> int:
+        return len(self.img_names)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, int]:
+        from PIL import Image
+
+        with Image.open(os.path.join(self.img_dir, self.img_names[idx])) as pil:
+            if self.resolution and pil.size != (self.resolution, self.resolution):
+                pil = pil.resize((self.resolution, self.resolution), Image.BILINEAR)
+            img = _to_nhwc(np.asarray(pil))
+        img = normalize_to_unit_range(img) if self.normalize else np.asarray(img, np.float32)
+        return img, int(self.img_labels[idx])

@@ -1,5 +1,6 @@
 """Sampling loops: port of ``siss_tpu/diffusion/sampling.py`` (DDPM
-ancestral, DDIM, the denoising injection and DPM-Solver++(2M)).
+ancestral, DDIM, classifier-free-guidance DDIM with noise-norm tracking,
+the denoising injection and DPM-Solver++(2M)).
 
 Each ``lax.scan`` of the JAX package is a Python loop here, run under
 ``torch.inference_mode()``. The random draws are arguments: ``x_init`` (the
@@ -11,7 +12,7 @@ integer timestep tensor.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +41,16 @@ def _start(shape, generator, x_init, dtype, device):
 
 def _t_batch(t: int, batch: int, device) -> torch.Tensor:
     return torch.full((batch,), t, dtype=torch.long, device=device)
+
+
+def cfg_branches(eps_fn: EpsFn, x: torch.Tensor, t: int, both: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two guidance branches in ONE model call of batch 2B: ``[x, x]``
+    at timestep ``t`` under ``both`` = [uncond; cond] embeddings. Returns
+    (ε_uncond, ε_text − ε_uncond)."""
+    B = x.shape[0]
+    eps_both = eps_fn(torch.cat([x, x], dim=0), _t_batch(t, 2 * B, x.device), both)
+    return eps_both[:B], eps_both[B:] - eps_both[:B]
 
 
 @torch.inference_mode()
@@ -76,6 +87,42 @@ def sample_ddim(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
         x = ddim_step(schedule, x, eps, t, p, eta=eta,
                       noise=None if step_noise is None else step_noise[i], generator=generator)
     return x
+
+
+@torch.inference_mode()
+def sample_ddim_cfg(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
+                    cond_embeds: torch.Tensor, uncond_embeds: torch.Tensor,
+                    guidance_scale: float = 7.5, num_inference_steps: int = 50,
+                    track_noise_norm: bool = False, eta: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    x_init: Optional[torch.Tensor] = None,
+                    step_noise: Optional[Sequence[torch.Tensor]] = None,
+                    dtype=torch.float32
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Classifier-free-guidance DDIM with the optional per-step noise norms
+    of the memorisation diagnostic: per image, ‖ε_uncond‖ and ‖ε_text −
+    ε_uncond‖ in fp32. The two branches go through ONE model call of batch
+    2B, ``[uncond, cond]``; eps = ε_u + g·(ε_c − ε_u).
+
+    Returns ``(latents, norms)``; norms is None or a dict of ``uncond_norm``
+    and ``text_norm`` tensors shaped [steps, B]. With ``eta > 0`` each
+    step's noise is ``step_noise[i]`` or a draw from ``generator``."""
+    device = schedule.gamma.device
+    ts, prev = _timestep_grid(schedule, num_inference_steps)
+    x = _start(shape, generator, x_init, dtype, device)
+    both = torch.cat([uncond_embeds, cond_embeds], dim=0)
+    dims = tuple(range(1, x.ndim))
+    uncond_norms, text_norms = [], []
+    for i, (t, p) in enumerate(zip(ts, prev)):
+        eps_uncond, delta = cfg_branches(eps_fn, x, t, both)
+        if track_noise_norm:
+            uncond_norms.append(torch.linalg.vector_norm(eps_uncond.float(), dim=dims))
+            text_norms.append(torch.linalg.vector_norm(delta.float(), dim=dims))
+        x = ddim_step(schedule, x, eps_uncond + guidance_scale * delta, t, p, eta=eta,
+                      noise=None if step_noise is None else step_noise[i], generator=generator)
+    if not track_noise_norm:
+        return x, None
+    return x, {"uncond_norm": torch.stack(uncond_norms), "text_norm": torch.stack(text_norms)}
 
 
 @torch.inference_mode()

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from siss_tpu_torch.device import resolve_device
+from siss_tpu_torch.utils.checkpoint import read_state_dict
 
 INCEPTION_SIZE = 299
 
@@ -211,18 +212,6 @@ def load_inception_state_dict(model: InceptionV3Features, sd: Mapping[str, objec
         raise KeyError(f"InceptionV3 state dict: missing {missing}, unexpected {unexpected}")
 
 
-def _read_state_dict(path: str) -> dict:
-    if path.endswith(".safetensors"):
-        try:
-            from safetensors.torch import load_file
-        except ImportError as e:
-            raise ImportError(f"{path}: reading .safetensors weights needs the safetensors "
-                              "package, which is not installed; save the state dict with "
-                              "torch.save (.pth/.pt/.bin) instead") from e
-        return load_file(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
-
-
 class RandomEmbedder(nn.Module):
     """Three stride-2 3×3 convolutions with ReLU, a spatial mean and a dense
     layer to ``features``, random weights from ``seed``: the FID-rand
@@ -297,7 +286,7 @@ def make_inception_feature_fn(weights_path: Optional[str] = None, batch_input_ra
     when there is no such file, ``RandomEmbedder`` (``"rand"``)."""
     if weights_path and os.path.exists(weights_path):
         model = InceptionV3Features(variant=variant)
-        load_inception_state_dict(model, _read_state_dict(weights_path))
+        load_inception_state_dict(model, read_state_dict(weights_path))
         name = "inception_v3"
     else:
         model, name = RandomEmbedder(), "rand"

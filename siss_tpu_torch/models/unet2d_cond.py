@@ -232,7 +232,7 @@ class UNet2DCondition(nn.Module):
             if cfg.remat_policy in ("dots", "dots_no_batch"):
                 raise NotImplementedError(
                     f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP Queue 1 "
-                    "item 11, remat_policy); use remat_policy=None")
+                    "item 11d, remat_policy); use remat_policy=None")
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         ch0 = cfg.block_out_channels[0]
         temb = ch0 * 4

@@ -1,0 +1,409 @@
+"""Stable Diffusion 1.x datapoint unlearning: port of
+``siss_tpu/tasks/delete_sd.py``.
+
+Unlearns a memorised image from an SD-1.x model: a frozen VAE and CLIP text
+tower, a trainable conditional UNet, the SISS step over latents. Weights
+come from ``pretrained_model_name_or_path``: ``unet/``, ``vae/`` and
+``text_encoder/`` each holding a state dict with diffusers/transformers
+names (``diffusion_pytorch_model.bin`` or ``pytorch_model.bin``), else
+random weights with a warning. The prompts come from the dataset's side
+files (``fill_cfg``); they are encoded once by the text tower with the
+checkpoint's ``tokenizer/``, or read from ``.npz``/``.pt`` embedding files;
+with neither the run trains on zero conditioning.
+
+Per step, each of the keep and forget streams is turned into latents: with
+the latent cache (``cache_latents: auto|true|false``) from moments encoded
+once at start-up (``data/latent_cache.py``), otherwise by the VAE encode of
+each microbatch inside the step, after the keyed horizontal flip. Both
+paths draw from the run's generator in one order (the [A, mb] flip mask,
+then one normal per microbatch of the keep stream, then of the forget
+stream, then the step's draws), so they train on the same latents.
+
+Every ``validation_steps`` steps, ``eval_batches`` CFG DDIM samples per
+prompt (each batch from a generator seeded with ``seed + b``), their panel
+and, with ``metrics.noise_norm``, each prompt's text-conditional noise-norm
+curve appended to its history and logged as a line series. Progress is
+counted in images: the tracker's step is the image count. The superfactor
+decays once per optimizer step. ``metrics.fraction_deletion``, ``sscd`` and
+``clip_iqa`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from siss_tpu_torch.config import to_dict
+from siss_tpu_torch.data import BatchLoader, InfiniteSampler, RepeatedSampler, SDData, dual_stream
+from siss_tpu_torch.data.latent_cache import (build_moment_cache, cache_nbytes,
+                                              sample_from_moments)
+from siss_tpu_torch.diffusion import spaced_timesteps
+from siss_tpu_torch.diffusion.sd_pipeline import StableDiffusionPipeline, sd_noise_schedule
+from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig, UNet2DConditionConfig,
+                                   build_clip_text, build_unet_cond, build_vae,
+                                   load_clip_tokenizer)
+from siss_tpu_torch.tasks.base import Task, boundary_crossed
+from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
+                                  build_optimizer, cond_unet_eps_apply)
+from siss_tpu_torch.utils import CheckpointManager, PreemptionGuard
+from siss_tpu_torch.utils.checkpoint import read_state_dict
+
+_WEIGHT_FILES = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
+                 "diffusion_pytorch_model.safetensors", "model.safetensors")
+_UNPORTED_METRICS = ("fraction_deletion", "sscd", "clip_iqa")
+
+
+class _Images:
+    """The images of an ``SDData``, without their labels."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i][0]
+
+
+class DeleteSD(Task):
+    def fill_cfg(self) -> None:
+        """``deletion.frac_deletion`` and ``data_files.mem_img_path`` from
+        ``clustering_info.json``; the validation prompts from the prompt
+        files under ``images_name`` unless given."""
+        cfg = self.cfg
+        info_path = str(cfg.data_files.clustering_info_path)
+        if os.path.exists(info_path):
+            with open(info_path) as f:
+                info = json.load(f)
+            cfg.deletion.frac_deletion = info.get("frac_deletion",
+                                                  cfg.deletion.get("frac_deletion"))
+            if info.get("mem_img_name"):
+                cfg.data_files.mem_img_path = os.path.join(str(cfg.data_files.img_dir),
+                                                           info["mem_img_name"])
+        if not cfg.get("validation_prompts"):
+            prompts = []
+            for p in (cfg.get("og_prompts_path"), cfg.get("modified_prompts_path")):
+                if p and os.path.exists(str(p)):
+                    with open(str(p)) as f:
+                        data = json.load(f)
+                    name = str(cfg.images_name)
+                    if name in data:
+                        prompts.append(data[name])
+            cfg.validation_prompts = prompts or None
+        first = (cfg.validation_prompts or [None])[0]
+        cfg.using_augmented_prompt = bool(first and str(first).endswith((".pt", ".npz")))
+
+    def run(self) -> None:
+        cfg = self.cfg
+        self.fill_cfg()
+        metrics_cfg = cfg.get("metrics") or {}
+        for name in _UNPORTED_METRICS:
+            if metrics_cfg.get(name):
+                raise NotImplementedError(f"metrics.{name} is not ported yet (ROADMAP Queue 1 "
+                                          "item 11c, the SD metrics)")
+        #: Seconds of the set-up parts (``models``, ``latent_cache``), and one
+        #: record per validation: its step and the seconds of its parts
+        #: (``sampling``, ``decode``, ``norms``).
+        self.setup_seconds, self.eval_records = {}, []
+        tracker = self.make_tracker()
+        seed = int(cfg.seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        dtype = self.compute_dtype()
+
+        res = int(cfg.resolution)
+        img_dir, labels = str(cfg.data_files.img_dir), str(cfg.data_files.labels_path)
+        keep_imgs = _Images(SDData("nondeletion", img_dir, labels, resolution=res))
+        mem_imgs = _Images(SDData("deletion", img_dir, labels, resolution=res))
+
+        t0 = time.perf_counter()
+        unet_cfg, vae_cfg, text_cfg = self._configs()
+        unet = build_unet_cond(unet_cfg, seed=seed, dtype=dtype, device=self.device)
+        vae = build_vae(vae_cfg, seed=seed + 1, dtype=dtype, device=self.device)
+        text = build_clip_text(text_cfg, seed=seed + 2, dtype=dtype, device=self.device)
+        for sub, model in (("unet", unet), ("vae", vae), ("text_encoder", text)):
+            self._load_weights(sub, model)
+        for tower in (vae, text):
+            tower.requires_grad_(False).eval()
+        self.synchronize()
+        self.setup_seconds["models"] = time.perf_counter() - t0
+
+        schedule = sd_noise_schedule(device=self.device)
+        tok_dir = os.path.join(str(cfg.pretrained_model_name_or_path), "tokenizer")
+        tokenizer = load_clip_tokenizer(tok_dir)
+        pipeline = StableDiffusionPipeline(
+            unet_apply=cond_unet_eps_apply, unet=unet, vae_decode=vae.decode,
+            text_encoder=text, tokenizer=tokenizer, schedule=schedule,
+            latent_channels=vae_cfg.latent_channels, vae_scale_factor=vae_cfg.scale_factor)
+
+        # Prompt embeddings, computed once, at the text tower's length (77).
+        dim, max_len = text_cfg.hidden_size, text_cfg.max_position_embeddings
+        prompt_embeds = []
+        for p in list(cfg.get("validation_prompts") or []):
+            if str(p).endswith((".pt", ".npz")):
+                prompt_embeds.append(pipeline.load_prompt_embeds(str(p), self.device))
+            elif tokenizer is not None:
+                prompt_embeds.append(pipeline.encode_prompt(str(p), max_len))
+        prompt_embeds = [e.reshape(1, -1, dim) for e in prompt_embeds]
+        if prompt_embeds:
+            train_cond = prompt_embeds[0]
+        else:
+            print("[delete_sd] WARNING: no prompts/tokenizer; using zero conditioning")
+            train_cond = torch.zeros((1, max_len, dim), device=self.device)
+        uncond = (pipeline.encode_prompt("", max_len) if tokenizer is not None
+                  else torch.zeros_like(train_cond))
+
+        training_steps = int(cfg.training_steps)
+        bs = int(cfg.train_batch_size)
+        accum = int(cfg.gradient_accumulation_steps)
+        opt, lr_schedule = build_optimizer(self._optimizer_cfg(), unet.parameters(),
+                                           str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
+                                           training_steps)
+        step_cfg = DeletionStepConfig(
+            loss_fn=str(cfg.deletion.loss_fn),
+            loss_params=tuple(sorted(to_dict(cfg.deletion.get("loss_params") or {}).items())),
+            scaling_norm=float(cfg.deletion.get("scaling_norm", 1.0)),
+            eta=float(cfg.deletion.get("eta", 1e-2)),
+            grad_accum_steps=accum,
+            t_min=int(cfg.deletion.get("t_min", 999)),
+            t_max=int(cfg.deletion.get("t_max", 1000)),
+            max_grad_norm=float(cfg.max_grad_norm),
+            use_ema=bool(cfg.use_ema),
+            noise_offset=float(cfg.get("noise_offset") or 0.0),
+            input_perturbation=float(cfg.get("input_perturbation") or 0.0),
+            batched_dual_backward=bool(cfg.deletion.get("batched_dual_backward", False)),
+            grad_accum_dtype=str(cfg.deletion.get("grad_accum_dtype", "float32")),
+            param_cast_dtype=cfg.deletion.get("param_cast_dtype"),
+            fused_surgery=bool(cfg.deletion.get("fused_surgery", True)),
+            fused_siss=bool(cfg.deletion.get("fused_siss", True)),
+        )
+        step_fn = build_deletion_train_step(cond_unet_eps_apply, schedule, step_cfg)
+        state = TrainState.create(unet, opt, lr_schedule, use_ema=step_cfg.use_ema)
+        random_flip = bool(cfg.get("random_flip"))
+        sf = float(vae_cfg.scaling_factor)
+
+        use_cache = self._use_latent_cache(len(keep_imgs) + len(mem_imgs), res, vae_cfg,
+                                           random_flip)
+        keep_src, mem_src = keep_imgs, mem_imgs
+        if use_cache:
+            t0 = time.perf_counter()
+            keep_src = build_moment_cache(vae.encode_moments, keep_imgs, bs, random_flip,
+                                          self.device)
+            mem_src = build_moment_cache(vae.encode_moments, mem_imgs, bs, random_flip,
+                                         self.device)
+            self.setup_seconds["latent_cache"] = time.perf_counter() - t0
+            print(f"[delete_sd] latent cache: {len(keep_imgs)}+{len(mem_imgs)} images → "
+                  f"{(keep_src.nbytes + mem_src.nbytes) / 2**20:.1f} MiB moments "
+                  f"({'both orientations' if random_flip else 'one orientation'}); "
+                  "per-step VAE encode elided")
+
+        def latents_of(streams):
+            """The step's [A, mb, h, w, C] latents of both streams."""
+            A, mb = streams["all"].shape[:2]
+            flip = (torch.rand((A, mb), generator=gen, device=self.device) < 0.5
+                    if random_flip else None)
+            out = {}
+            for k in ("all", "deletion"):
+                x = streams[k]
+                if use_cache:
+                    out[k] = sample_from_moments(x, flip, sf, generator=gen)
+                    continue
+                if flip is not None:
+                    x = torch.where(flip[:, :, None, None, None], x.flip(3), x)
+                with torch.no_grad():
+                    out[k] = torch.stack([vae.encode_sample(x[a], generator=gen)
+                                          for a in range(A)])
+            out["conditioning"] = train_cond.expand(A, mb, *train_cond.shape[-2:])
+            return out
+
+        keep_loader = BatchLoader(keep_src, InfiniteSampler(len(keep_imgs), seed=seed), bs)
+        forget_loader = BatchLoader(mem_src, RepeatedSampler(len(mem_imgs),
+                                                             training_steps * accum * bs), bs)
+
+        # Per prompt, the history of its averaged text-conditional noise-norm
+        # curves (ascending timesteps), one appended per validation.
+        noise_norm_history = [[] for _ in prompt_embeds]
+        n_inference = int(cfg.get("num_inference_steps", 50))
+        norm_xs = sorted(int(t) for t in spaced_timesteps(schedule.num_train_timesteps,
+                                                          n_inference))
+
+        def log_validation(step, img_count):
+            model = self.eval_model(state)
+            record = {"step": step, "sampling": 0.0, "decode": 0.0, "norms": 0.0}
+            logs = {}
+
+            def timed(part, fn, *args, **kwargs):
+                seconds = []
+                out = self.timed(seconds, fn, *args, **kwargs)
+                record[part] += seconds[0]
+                return out
+
+            for pi, pe in enumerate(prompt_embeds):
+                imgs_list, norm_curves = [], []
+                for b in range(int(cfg.eval_batches)):
+                    sample_gen = torch.Generator(device=self.device).manual_seed(seed + b)
+                    latents, norms = timed(
+                        "sampling", pipeline.sample_latents, pe, uncond.reshape(1, -1, dim),
+                        sample_gen, height=res, width=res, num_inference_steps=n_inference,
+                        guidance_scale=float(cfg.get("guidance_scale", 7.5)),
+                        track_noise_norm=bool(metrics_cfg.get("noise_norm")), unet=model)
+                    imgs_list.append(timed("decode", pipeline.decode_images, latents))
+                    if norms is not None:
+                        norm_curves.append({k: v.cpu().numpy() for k, v in norms.items()})
+                if imgs_list:  # eval_batches 0 samples nothing
+                    tracker.log_images(f"Generated Images (prompt {pi})",
+                                       np.concatenate(imgs_list)[:8], step=img_count)
+                if norm_curves:
+                    timed("norms", self._log_norms, tracker, logs, pi, norm_curves,
+                          noise_norm_history[pi], norm_xs, img_count)
+            tracker.log(logs, step=img_count)
+            self.eval_seconds.append(record["sampling"] + record["decode"] + record["norms"])
+            self.eval_records.append(record)
+
+        ckpt = CheckpointManager(str(cfg.output_dir), cfg.get("checkpoints_total_limit"),
+                                 async_save=bool(cfg.get("async_checkpointing", False)))
+        global_step = 0
+        if cfg.get("resume_from_checkpoint"):
+            # "latest" or "<run dir>/latest": the newest bundle of the run
+            # (the command line makes the run dir the output dir)
+            path = str(cfg.resume_from_checkpoint)
+            path = "latest" if os.path.basename(path) == "latest" else path
+            self.restore(state, gen, ckpt.restore_item(path, "state"))
+            global_step = state.step
+            # fast-forward both streams at the sampler level, reading no image
+            keep_loader.skip_batches = forget_loader.skip_batches = global_step * accum
+            print(f"[delete_sd] resumed from step {global_step}")
+        img_count = global_step * bs * accum
+        stream = dual_stream(iter(keep_loader), iter(forget_loader), accum)
+
+        # The superfactor decays once per optimizer step; a resumed run starts
+        # where the decay left it.
+        superfactor = (cfg.deletion.get("loss_params") or {}).get("superfactor")
+        decay = cfg.deletion.get("superfactor_decay")
+        if superfactor is not None:
+            superfactor = float(superfactor) * (float(decay) ** global_step if decay else 1.0)
+
+        def one_step():
+            nonlocal superfactor
+            streams = {k: self.to_device(v) for k, v in next(stream).items()}
+            dyn = {} if superfactor is None else {"superfactor": superfactor}
+            metrics = step_fn(state, latents_of(streams), gen, dyn)[1]
+            if superfactor is not None:
+                metrics["superfactor"] = superfactor
+                if decay:
+                    superfactor *= float(decay)
+            return metrics
+
+        steps_per_call = max(int(cfg.get("steps_per_call", 1) or 1), 1)
+        if superfactor is not None and steps_per_call > 1:
+            print("[delete_sd] steps_per_call>1 incompatible with superfactor; running per-step")
+            steps_per_call = 1
+        guard = PreemptionGuard().install()
+        images_per_step = bs * accum
+        t_last = time.time()
+        while global_step < training_steps:
+            if guard.should_stop:
+                ckpt.save_bundle(global_step, self.bundle(state, gen))
+                print(f"[preemption] saved checkpoint-{global_step}; exiting")
+                break
+            k_done = min(steps_per_call, training_steps - global_step)
+            per_step = [self.timed(self.step_seconds, one_step) for _ in range(k_done)]
+            # images_per_sec as the JAX task defines it: the pass's images over
+            # the wall time since the previous pass ended (its validation too).
+            now = time.time()
+            dt, t_last = now - t_last, now
+            for i, metrics in enumerate(per_step):
+                metrics["images_per_sec"] = k_done * images_per_step / dt
+                tracker.log(metrics, step=img_count + (i + 1) * images_per_step)
+            img_count += k_done * images_per_step
+            prev_step, global_step = global_step, global_step + k_done
+            if boundary_crossed(prev_step, global_step, int(cfg.get("validation_steps", 1) or 1)):
+                log_validation(global_step, img_count)
+            if boundary_crossed(prev_step, global_step, cfg.get("checkpointing_steps")):
+                ckpt.save_bundle(global_step, self.bundle(state, gen))
+
+        if not guard.should_stop:
+            ckpt.save_bundle(training_steps, self.bundle(state, gen))
+        ckpt.wait()
+        tracker.finish()
+
+    def _configs(self):
+        """The UNet, VAE and text-tower configs of ``model_variant``."""
+        cfg = self.cfg
+        unet_kw = {
+            "gradient_checkpointing": bool(cfg.gradient_checkpointing),
+            "attention_impl": str(cfg.get("attention_impl", "auto")),
+            "ff_impl": str(cfg.get("ff_impl", "saved")),
+            "remat_attention": bool(cfg.get("remat_attention", True)),
+            "remat_policy": cfg.get("remat_policy") or None,
+        }
+        if str(cfg.get("model_variant", "sd_v1")) == "tiny":
+            return (UNet2DConditionConfig(**{**UNet2DConditionConfig.tiny().__dict__, **unet_kw}),
+                    AutoencoderKLConfig.tiny(), CLIPTextConfig.tiny())
+        return (UNet2DConditionConfig.sd_v1(**unet_kw), AutoencoderKLConfig.sd_v1(),
+                CLIPTextConfig.sd_v1())
+
+    def _load_weights(self, sub: str, model: torch.nn.Module) -> None:
+        """``<pretrained_model_name_or_path>/<sub>/``'s state dict, if any."""
+        path = os.path.abspath(os.path.join(str(self.cfg.pretrained_model_name_or_path), sub))
+        for name in _WEIGHT_FILES:
+            if os.path.isfile(os.path.join(path, name)):
+                model.load_state_dict(read_state_dict(os.path.join(path, name)))
+                return
+        print(f"[delete_sd] WARNING: no converted weights at {path}; using random init")
+
+    def _optimizer_cfg(self) -> dict:
+        """The flat ``adam_*`` knobs as an AdamW config, or the ``optimizer:``
+        override (its ``lr`` from ``learning_rate`` unless set), which
+        replaces every ``adam_*`` knob as in the JAX task."""
+        cfg = self.cfg
+        if cfg.get("optimizer"):
+            opt_cfg = {"lr": float(cfg.learning_rate), **to_dict(cfg.optimizer)}
+            print(f"[delete_sd] optimizer override active; effective hyperparameters: "
+                  f"{opt_cfg} (lr_scheduler={cfg.lr_scheduler}, warmup={cfg.lr_warmup_steps}; "
+                  f"weight_decay defaults to 0 unless set here — the baseline "
+                  f"adam_weight_decay={cfg.adam_weight_decay} does NOT carry over)")
+            return opt_cfg
+        return {"_target_": "torch.optim.AdamW", "lr": float(cfg.learning_rate),
+                "betas": [float(cfg.adam_beta1), float(cfg.adam_beta2)],
+                "weight_decay": float(cfg.adam_weight_decay), "eps": float(cfg.adam_epsilon),
+                "mu_dtype": cfg.get("adam_mu_dtype"), "nu_dtype": cfg.get("adam_nu_dtype")}
+
+    def _use_latent_cache(self, n_images: int, res: int, vae_cfg: AutoencoderKLConfig,
+                          random_flip: bool) -> bool:
+        """``cache_latents``: ``auto`` caches when the moments fit
+        ``cache_latents_budget_mb`` (fp32 on the host), ``true`` always."""
+        cfg = self.cfg
+        mode = str(cfg.get("cache_latents", "auto")).lower()
+        if mode in ("false", "0", "none", "off", ""):
+            return False
+        nbytes = cache_nbytes(n_images, res, vae_cfg.scale_factor, vae_cfg.latent_channels,
+                              random_flip)
+        budget = float(cfg.get("cache_latents_budget_mb", 4096) or 4096) * 2**20
+        if mode == "auto":
+            return nbytes <= budget
+        if nbytes > budget:
+            print(f"[delete_sd] cache_latents=true: cache is {nbytes / 2**20:.0f} MiB "
+                  f"(> budget {budget / 2**20:.0f} MiB); honoring the explicit request")
+        return True
+
+    @staticmethod
+    def _log_norms(tracker, logs, pi, norm_curves, history, norm_xs, img_count) -> None:
+        """Prompt ``pi``'s text-conditional noise-norm curve (mean over
+        batches and images, ascending timesteps) appended to its history and
+        logged as a line series; for prompt 0 the per-step scalars too."""
+        text_curve = np.mean([n["text_norm"] for n in norm_curves], axis=(0, 2))[::-1]
+        history.append([float(v) for v in text_curve])
+        tracker.log_line_series(f"noise_norms/noise_norms_{pi}", xs=norm_xs, ys=history,
+                                keys=list(range(len(history))),
+                                title=f"Text-conditional noise norm (prompt {pi})",
+                                xname="Timestep", step=img_count)
+        if pi == 0:
+            uncond_curve = np.mean([n["uncond_norm"] for n in norm_curves], axis=(0, 2))[::-1]
+            for si in range(len(text_curve)):
+                logs[f"noise_norms/uncond_step{si}"] = float(uncond_curve[si])
+                logs[f"noise_norms/text_step{si}"] = float(text_curve[si])

@@ -34,6 +34,21 @@ def to_host(obj: Any) -> Any:
     return obj
 
 
+def read_state_dict(path: str) -> dict:
+    """A state dict saved with ``torch.save`` (``.bin``, ``.pt``, ``.pth``),
+    loaded with ``weights_only=True``, or a ``.safetensors`` file when the
+    safetensors package is installed (else an ImportError naming it)."""
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise ImportError(f"{path}: reading .safetensors weights needs the safetensors "
+                              "package, which is not installed; save the state dict with "
+                              "torch.save (.pth/.pt/.bin) instead") from e
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 class CheckpointManager:
     """``async_save=True`` moves the disk write (and rotation) to one
     background thread; the device-to-host copy stays in ``save_bundle``, so

@@ -1,22 +1,26 @@
-"""Carry flax UNet params into the port's modules.
+"""Carry flax params into the port's modules.
 
 The input is the nested dict of numpy arrays a flax param tree becomes under
 ``jax.tree.map(np.asarray, params)``. The name rules are the port's own copy
-of the JAX package's exporter (``siss_tpu/utils/sd_convert.py`` and
-``siss_tpu/utils/export.py``), limited to what ``UNet2D`` and
-``UNet2DCondition`` use: block paths expand (``down_blocks_0_resnets_1`` →
+of the JAX package's converters and exporter (``siss_tpu/utils/sd_convert.py``
+and ``siss_tpu/utils/export.py``), limited to the modules the port has:
+``UNet2D``, ``UNet2DCondition``, the VAE (``AutoencoderKL``) and the CLIP
+text tower. Block paths expand (``down_blocks_0_resnets_1`` →
 ``down_blocks.0.resnets.1``, ``transformer_blocks_0`` →
-``transformer_blocks.0``), the GEGLU feed-forward's ``ff/geglu_proj`` and
+``transformer_blocks.0``, the VAE's ``down_blocks_0_downsamplers_0_conv`` →
+``down_blocks.0.downsamplers.0.conv``, CLIP's ``layers_3`` →
+``layers.3``), the GEGLU feed-forward's ``ff/geglu_proj`` and
 ``ff/out_proj`` become ``ff.net.0.proj`` and ``ff.net.2``, attention output
-projections become ``to_out.0``, and flax leaf names map to torch's. Kernels
-transpose from flax to torch layout: HWIO → OIHW for convs, IO → OI for
-linears.
+projections become ``to_out.0``, and flax leaf names map to torch's. The
+CLIP text tower's keys take transformers' ``text_model.`` prefixes
+(``clip_text_key``). Kernels transpose from flax to torch layout: HWIO →
+OIHW for convs, IO → OI for linears; embeddings keep their layout.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +30,8 @@ _TOP_RE = re.compile(
     r"^(down_blocks|up_blocks)_(\d+)_(resnets|attentions|downsamplers|upsamplers)_(\d+)$")
 _MID_RE = re.compile(r"^mid_block_(resnets|attentions)_(\d+)$")
 _TRANSFORMER_RE = re.compile(r"^transformer_blocks_(\d+)$")
+_DOWNSAMPLER_CONV_RE = re.compile(r"^down_blocks_(\d+)_downsamplers_0_conv$")
+_LAYERS_RE = re.compile(r"^layers_(\d+)$")
 _SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 
 
@@ -43,6 +49,14 @@ def _expand_block_names(parts: List[str]) -> List[str]:
         m = _TRANSFORMER_RE.match(p)
         if m:
             out += ["transformer_blocks", m.group(1)]
+            continue
+        m = _DOWNSAMPLER_CONV_RE.match(p)
+        if m:
+            out += ["down_blocks", m.group(1), "downsamplers", "0", "conv"]
+            continue
+        m = _LAYERS_RE.match(p)
+        if m:
+            out += ["layers", m.group(1)]
             continue
         out.append(p)
     return out
@@ -68,6 +82,23 @@ def torch_key(names: Sequence[str]) -> str:
     return ".".join(parts + [_SUFFIX[names[-1]]])
 
 
+# CLIP text: the flax module's top-level names → transformers' prefixes.
+_CLIP_TEXT_PREFIX = {"token_embedding": "text_model.embeddings",
+                     "position_embedding": "text_model.embeddings",
+                     "layers": "text_model.encoder", "final_layer_norm": "text_model"}
+_CLIP_MLP = {"mlp_fc1": ["mlp", "fc1"], "mlp_fc2": ["mlp", "fc2"]}
+
+
+def clip_text_key(names: Sequence[str]) -> str:
+    """transformers' ``CLIPTextModel`` key of the flax CLIP text param at
+    path ``names``."""
+    names = [str(n) for n in names]
+    parts = []
+    for p in _expand_block_names(names[:-1]):
+        parts += _CLIP_MLP.get(p, [p])
+    return ".".join([_CLIP_TEXT_PREFIX[parts[0]]] + parts + [_SUFFIX[names[-1]]])
+
+
 def _leaves(tree: Mapping[str, Any], prefix=()):
     for name, sub in tree.items():
         path = prefix + (str(name),)
@@ -77,11 +108,14 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
             yield path, sub
 
 
-def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax UNet param tree (numpy leaves) → diffusers-named torch state dict."""
+def params_from_flax(flax_params: Mapping[str, Any],
+                     key_fn: Callable[[Sequence[str]], str] = torch_key) -> Dict[str, torch.Tensor]:
+    """Flax param tree (numpy leaves) → torch state dict, keys by ``key_fn``:
+    ``torch_key`` (diffusers names: the UNets and the VAE) or
+    ``clip_text_key``."""
     sd: Dict[str, torch.Tensor] = {}
     for names, leaf in _leaves(flax_params):
-        key = torch_key(names)
+        key = key_fn(names)
         arr = np.asarray(leaf)
         if arr.dtype not in (np.float32, np.float16, np.float64):
             arr = arr.astype(np.float32)
@@ -96,7 +130,8 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_flax_params(model: nn.Module, flax_params: Mapping[str, Any]) -> nn.Module:
+def load_flax_params(model: nn.Module, flax_params: Mapping[str, Any],
+                     key_fn: Callable[[Sequence[str]], str] = torch_key) -> nn.Module:
     """Load a flax param tree into ``model`` with ``strict=True``."""
-    model.load_state_dict(params_from_flax(flax_params), strict=True)
+    model.load_state_dict(params_from_flax(flax_params, key_fn), strict=True)
     return model

@@ -1,10 +1,10 @@
 """Experiment tracking: port of ``siss_tpu/utils/tracker.py``.
 
 The same key schema and files as the JAX package: a JSONL stream
-(``metrics.jsonl``), ``config.json``, ``summary.json`` and PNG image panels
-under ``images/``, plus wandb when it is installed and asked for. The PNGs
-are written with the standard library (zlib), so no imaging package is
-needed.
+(``metrics.jsonl``, line-series panels included), ``config.json``,
+``summary.json`` and PNG image panels under ``images/``, plus wandb when
+it is installed and asked for. The PNGs are written with the standard
+library (zlib), so no imaging package is needed.
 """
 
 from __future__ import annotations
@@ -106,6 +106,28 @@ class Tracker:
             import wandb
 
             self._wandb.log({name: [wandb.Image(p) for p in paths]}, step=step)
+
+    def log_line_series(self, name: str, xs, ys, keys=None, title: str = "",
+                        xname: str = "x", step: Optional[int] = None):
+        """A wandb ``plot.line_series`` panel (the SD task's per-timestep
+        noise-norm curves), always written to the JSONL stream too."""
+        if not self.main_process:
+            return
+        record = {
+            "_panel": "line_series", "_name": name, "_title": title,
+            "_xname": xname, "xs": [_to_scalar(x) for x in xs],
+            "ys": [[_to_scalar(y) for y in series] for series in ys],
+            "keys": list(keys) if keys is not None else None,
+            "_step": step, "_time": time.time(),
+        }
+        self._jsonl.write(json.dumps(record) + "\n")
+        if self._wandb is not None:
+            import wandb
+
+            self._wandb.log(
+                {name: wandb.plot.line_series(xs=list(xs), ys=[list(s) for s in ys],
+                                              keys=keys, title=title, xname=xname)},
+                step=step)
 
     def log_summary(self, key: str, value: Any):
         """wandb ``run.summary`` equivalent."""

@@ -37,7 +37,9 @@ def test_imports_no_jax():
             "siss_tpu_torch.tasks.delete_tshirt", "siss_tpu_torch.utils.checkpoint",
             "siss_tpu_torch.utils.tracker", "siss_tpu_torch.utils.preemption",
             "siss_tpu_torch.tasks.delete_celeb", "siss_tpu_torch.metrics.fid",
-            "siss_tpu_torch.metrics.inception_v3"} <= set(mods)
+            "siss_tpu_torch.metrics.inception_v3", "siss_tpu_torch.models.vae",
+            "siss_tpu_torch.models.clip_text", "siss_tpu_torch.models.clip_bpe",
+            "siss_tpu_torch.data.latent_cache", "siss_tpu_torch.tasks.delete_sd"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -47,13 +49,15 @@ def test_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond"])
+@pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond", "vae",
+                                   "clip_text"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from siss_tpu_torch.diffusion import NoiseSchedule, sd_noise_schedule
-    from siss_tpu_torch.models import (UNet2DConditionConfig, UNet2DConfig, build_unet,
-                                       build_unet_cond)
+    from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig,
+                                       UNet2DConditionConfig, UNet2DConfig, build_clip_text,
+                                       build_unet, build_unet_cond, build_vae)
 
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "schedule":
@@ -62,13 +66,17 @@ def test_entry_points_default_to_cuda(entry):
             sd_noise_schedule()
         elif entry == "unet_cond":
             build_unet_cond(UNet2DConditionConfig.tiny())
+        elif entry == "vae":
+            build_vae(AutoencoderKLConfig.tiny())
+        elif entry == "clip_text":
+            build_clip_text(CLIPTextConfig.tiny())
         else:
             build_unet(UNet2DConfig(block_out_channels=(16, 32), norm_num_groups=8,
                                     down_block_types=("DownBlock2D", "DownBlock2D"),
                                     up_block_types=("UpBlock2D", "UpBlock2D")))
 
 
-@pytest.mark.parametrize("config", ["train_tshirt_mnist", "delete_tshirt"])
+@pytest.mark.parametrize("config", ["train_tshirt_mnist", "delete_tshirt", "delete_sd"])
 def test_cli_defaults_to_cuda(config):
     """Without --device cpu the command line refuses a card-less host, naming
     cuda, before it builds anything."""
@@ -85,9 +93,10 @@ def test_tasks_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from siss_tpu_torch.config import load_config
-    from siss_tpu_torch.tasks import DeleteTShirt, TrainUnconditional
+    from siss_tpu_torch.tasks import DeleteSD, DeleteTShirt, TrainUnconditional
 
-    for cls, name in ((TrainUnconditional, "train_tshirt_mnist"), (DeleteTShirt, "delete_tshirt")):
+    for cls, name in ((TrainUnconditional, "train_tshirt_mnist"), (DeleteTShirt, "delete_tshirt"),
+                      (DeleteSD, "delete_sd")):
         with pytest.raises(RuntimeError, match="cuda"):
             cls(load_config(name))
 
