@@ -115,20 +115,43 @@ prints no result):
    ViT-L/14 text tower, resolution 512, bs 1 × 16, bf16, the latent cache
    on ``auto``, ``random_flip``, a validation every step: CFG DDIM at
    guidance 7.5 with noise norms, its 50 steps cut to 25) with
-   ``attention_impl=flash``, 3 steps and ``eval_batches=1``, on 16 random 512² PNGs under
+   ``attention_impl=flash``, 2 steps and ``eval_batches=1``, on 16 random 512² PNGs under
    ``build/chip_smoke_sd/`` with their side files, two prompt files and a
    synthetic byte-level CLIP vocabulary (random weights: the pretrained
    directory holds only ``tokenizer/``); then 1 step from a fresh output
    directory with ``cache_latents=false`` (the VAE encodes in the step).
    Each run must launch siss_reduce 16, siss_bwd 32, flash_bwd_dkv and
    flash_bwd_dq 320 times a step, and flash_fwd 160 a step plus 10 a CFG
-   UNet call; log finite step metrics at image counts 16, 32 and 48, both
+   UNet call; log finite step metrics at image counts 16 and 32, both
    prompts' panels and noise-norm line series at every validation (one
    curve more each time) and read ``frac_deletion`` = 1/16. It prints the
    set-up, step and validation seconds, peak memory and each run's
    launches on a line of their own, then times the VAE encode and decode
    of one 512² image and the CLIP text tower on one prompt beside the
    bound of their convolution and matmul operations at the bf16 rate.
+8c. The SD config's other options at full width. (b) Phase 8's sd_v1 step
+   (1 × 16) on one built UNet: 1 step with the default knobs; 1 + 1 with
+   the memory mode (bf16 Adam moments, accumulators and a bf16 copy of
+   the params a step), whose peak memory must be at least 4 GiB under the
+   default's; one microbatch's gradients by one batched pull against two
+   pulls through the kernels with ``remat_policy=dots``, both against the
+   fp32 gradients (the batched pull's largest and RMS error in each tensor
+   at most twice the two pulls', plus 2⁻¹⁶ of its largest |g|); then 1 + 1
+   steps with ``batched_dual_backward``. Each part must launch its kernels
+   exactly (the batched pull launches each flash backward kernel once a
+   site, the seeds folded into its batch). (a) ``--config-name=delete_sd``
+   on the Adafactor fast path the config documents (bs 2 × 8, bf16
+   accumulators, no recomputation), ``attention_impl=flash``, 2 steps,
+   with ``metrics.fraction_deletion``, ``sscd`` and ``clip_iqa`` on
+   synthetic artifacts written under ``build/chip_smoke_sd/metric_files``
+   (k-means centers, a TorchScript embedder, a random full-width ViT-L/14
+   vision state dict and anchors): the launches of 8b's rule, finite
+   metric values under the JAX task's keys (read from
+   ``siss_tpu/tasks/delete_sd.py``) at every validation, each metric's
+   seconds printed; then the ViT-L/14 on one 224² image in fp32 beside
+   its bound. The tiny SD step of phase 5 also runs card against CPU
+   with ``noise_offset`` and ``input_perturbation``, launching no SISS
+   kernel.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
@@ -938,7 +961,9 @@ def step_card_vs_cpu(torch, name, build_model, eps_apply, schedule, step_cfg, sh
     batch = {k: torch.randn(A, mb, *shape, generator=gen) for k in ("all", "deletion")}
     if cond is not None:
         batch["conditioning"] = torch.randn(A, mb, *cond, generator=gen)
-    draws = draw_microbatch_randomness(gen, A, mb, shape, step_cfg.t_min, step_cfg.t_max, "cpu")
+    draws = draw_microbatch_randomness(gen, A, mb, shape, step_cfg.t_min, step_cfg.t_max, "cpu",
+                                       noise_offset=step_cfg.noise_offset > 0,
+                                       input_perturbation=step_cfg.input_perturbation > 0)
     results = {}
     for dev in ("cpu", "cuda"):
         model = build_model(dev)
@@ -995,6 +1020,16 @@ def phase_tiny_step_parity(torch):
         (16, 16, 4), cond=(7, cond_cfg.cross_attention_dim))
     if not all(counts[k] > 0 for k in FLASH_OPS):
         raise AssertionError(f"the tiny SD step on the card did not run every flash kernel: {counts}")
+    # The SD noise knobs leave the fused SISS path, as the JAX step does.
+    knobs = step_card_vs_cpu(
+        torch, "tiny SD step, noise_offset and input_perturbation 0.1",
+        lambda dev: build_unet_cond(cond_cfg, seed=3, device=dev), cond_unet_eps_apply,
+        lambda dev: sd_noise_schedule(device=dev),
+        DeletionStepConfig(scaling_norm=750.0, grad_accum_steps=2, t_min=999, t_max=1000,
+                           noise_offset=0.1, input_perturbation=0.1),
+        (16, 16, 4), cond=(7, cond_cfg.cross_attention_dim))
+    if knobs["siss_reduce"] or knobs["siss_bwd"] or not knobs["flash_fwd"]:
+        raise AssertionError(f"the noise knobs' step must launch no SISS kernel: {knobs}")
     return counts
 
 
@@ -1211,7 +1246,9 @@ def inception_on_card(torch, card):
 
 
 SD_WORK = ROOT / "build" / "chip_smoke_sd"
-SD_IMAGES, SD_SIZE, SD_STEPS = 16, 512, 3
+# The cached run takes 2 steps (3 until phase 8c took the script near
+# 700 s; PERF.md §4 names the cut).
+SD_IMAGES, SD_SIZE, SD_STEPS = 16, 512, 2
 # The shipped validation sampler takes 50 steps; cut to 25 since the whole
 # script reached ~600 s (PERF.md §4 names the cut).
 SD_INFERENCE_STEPS = 25
@@ -1386,7 +1423,7 @@ def tower_times(torch, card):
 
 def phase_sd_task(torch, card):
     """The shipped delete_sd config through the port's command line at full
-    width: 3 steps with the latent cache, then 1 step from a fresh output
+    width: 2 steps with the latent cache, then 1 step from a fresh output
     directory encoding in the step (``cache_latents=false``)."""
     import shutil
 
@@ -1420,6 +1457,261 @@ def phase_sd_task(torch, card):
               + json.dumps({k: last[k] for k in SD_STEP_KEYS}, sort_keys=True))
         del task
     tower_times(torch, card)
+
+
+# Phase 8c(a): the SD task's Adafactor fast path (configs/delete_sd.yaml's
+# commented block) with the three SD metrics on, 2 steps.
+SD_FAST_PATH = ("optimizer={_target_: adafactor, weight_decay: 1.0e-2}", "train_batch_size=2",
+                "gradient_accumulation_steps=8", "deletion.grad_accum_dtype=bfloat16",
+                "gradient_checkpointing=false")
+SD_FAST_STEPS = 2
+JAX_SD_TASK = ROOT / "siss_tpu" / "tasks" / "delete_sd.py"
+# Phase 8c(b): the least the memory mode must take off the SD step's peak.
+MEMORY_MODE_SAVING = 4 * 2**30
+
+
+def jax_sd_metric_keys(prompts):
+    """The JAX SD task's validation metric keys, read from its source (the
+    script imports nothing of the JAX package)."""
+    templates = set(re.findall(r'logs\[f"(metrics/[a-z_]+)_\{pi\}"\]', JAX_SD_TASK.read_text()))
+    if not templates:
+        raise AssertionError(f"no metric keys found in {JAX_SD_TASK}")
+    return {f"{t}_{pi}" for t in templates for pi in range(prompts)}
+
+
+def write_sd_metric_files(torch, root: Path) -> None:
+    """Synthetic stand-ins for the SD metrics' artifacts under ``root``:
+    k-means centers (the memorised image and mid-grey) at 512², a small
+    TorchScript embedder for SSCD, and ``clip/``: a random full-width
+    ViT-L/14 vision state dict under transformers' names and random
+    anchors."""
+    import numpy as np
+    from PIL import Image
+
+    from siss_tpu_torch.models.clip_vision import CLIPVisionConfig, build_clip_vision
+
+    root.mkdir(parents=True)
+    mem = np.asarray(Image.open(SD_WORK / "images" / "img_0.png"), np.float32).reshape(-1)
+    np.savez(root / "km.npz", centers=np.stack([mem, np.full_like(mem, 127.5)]))
+    torch.manual_seed(0)
+    embedder = torch.nn.Sequential(torch.nn.Conv2d(3, 64, 7, stride=4), torch.nn.ReLU(),
+                                   torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+                                   torch.nn.Linear(64, 512)).eval()
+    torch.jit.save(torch.jit.script(embedder), str(root / "sscd.pt"))
+    (root / "clip" / "vision").mkdir(parents=True)
+    vision = build_clip_vision(CLIPVisionConfig.vit_l14(), seed=0, device="cpu")
+    torch.save(vision.state_dict(), root / "clip" / "vision" / "pytorch_model.bin")
+    rng = np.random.default_rng(0)
+    np.savez(root / "clip" / "iqa_anchors.npz", good=rng.normal(size=768), bad=rng.normal(size=768))
+
+
+def vit_times(torch, card):
+    """The CLIP ViT-L/14 vision tower on one 224² image in fp32 (TF32 off),
+    as CLIP-IQA runs it: ms beside the bound of its convolution and matmul
+    operations at the fp32 rate."""
+    from siss_tpu_torch.models.clip_vision import CLIPVisionConfig, build_clip_vision
+
+    vision = build_clip_vision(CLIPVisionConfig.vit_l14()).requires_grad_(False)
+    x = torch.randn(1, 3, 224, 224, generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    flops = count_tower_flops(torch, (vision,), lambda: vision(x))
+    with torch.inference_mode():
+        ms = statistics.median(gpu_ms(torch, lambda: vision(x), launches=5, repeats=3))
+    bound = (flops["conv"] + flops["matmul"]) / H100_FP32_FLOPS * 1e3
+    print(f"CLIP ViT-L/14 vision tower, one 224² image ({card}; fp32, TF32 off): {ms:.3f} ms; "
+          f"conv {flops['conv'] / 1e9:.3f} + matmul {flops['matmul'] / 1e9:.3f} GFLOP, bound "
+          f"{bound:.4f} ms at {H100_FP32_FLOPS / 1e12:.0f} TFLOP/s: {bound / ms:.1%} of it")
+
+
+def phase_sd_fast_path(torch, card):
+    """8c(a): the SD task's Adafactor fast path through the command line at
+    full width with the three SD metrics on synthetic artifacts."""
+    import os
+    import shutil
+
+    from siss_tpu_torch import main as cli
+
+    if not (SD_WORK / "images").is_dir():
+        write_sd_dataset(SD_WORK, SD_IMAGES, SD_SIZE)
+    files = SD_WORK / "metric_files"
+    shutil.rmtree(files, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_sd_metric_files(torch, files)
+    print(f"SD metric artifacts written in {time.perf_counter() - t0:.2f} s")
+    os.environ["SISS_CLIP_DIR"] = str(files / "clip")
+    try:
+        task, counts, seconds, peak = sd_task_run(
+            torch, cli, "fast_path", SD_FAST_STEPS, *SD_FAST_PATH,
+            f"metrics.fraction_deletion={{classifier_path: {files / 'km.npz'}}}",
+            f"metrics.sscd={{model_path: {files / 'sscd.pt'}}}", "metrics.clip_iqa=true")
+    finally:
+        del os.environ["SISS_CLIP_DIR"]
+        shutil.rmtree(files, ignore_errors=True)
+    check_sd_run(task, "fast path", SD_FAST_STEPS, counts)
+    cfg = task.cfg
+    accum, bs = int(cfg.gradient_accumulation_steps), int(cfg.train_batch_size)
+    rows = [json.loads(line) for line in open(Path(str(cfg.output_dir)) / "metrics.jsonl")]
+    want = jax_sd_metric_keys(len(cfg.validation_prompts))
+    validations = [r for r in rows if "noise_norms/text_step0" in r]
+    for r in validations:
+        got = {k for k in r if k.startswith("metrics/")}
+        if got != want or not all(math.isfinite(r[k]) for k in want):
+            raise AssertionError(f"SD fast path: metric keys {sorted(got)} at {r['_step']}, "
+                                 f"expected the JAX task's {sorted(want)}, finite")
+        print(f"SD fast path metrics at image {r['_step']}: "
+              + json.dumps({k: r[k] for k in sorted(want)}))
+    if [r["_step"] for r in validations] != [bs * accum * (i + 1) for i in range(SD_FAST_STEPS)]:
+        raise AssertionError(f"SD fast path: validations at {[r['_step'] for r in validations]}")
+    for rec in task.eval_records:
+        print(f"SD fast path validation at step {rec['step']} (seconds): "
+              + json.dumps({k: round(v, 4) for k, v in rec.items() if k != "step"}))
+    med = statistics.median(task.step_seconds)
+    print(f"SD fast path ({card}): --config-name=delete_sd {' '.join(SD_FAST_PATH)}, "
+          f"{SD_FAST_STEPS} steps of bs {bs} x accum {accum} in {seconds:.2f} s: set-up "
+          f"{json.dumps({k: round(v, 3) for k, v in task.setup_seconds.items()})} s, steps "
+          f"{[round(t, 4) for t in task.step_seconds]} s, median {med:.4f} s = "
+          f"{bs * accum / med:.2f} img/s, peak memory {peak / 2**30:.2f} GiB")
+    print("SD fast path launches: " + json.dumps(counts, sort_keys=True))
+    del task
+    vit_times(torch, card)
+
+
+def knob_steps(torch, label, state, step, batch, gen, steps, per_step):
+    """``steps`` steps of the SD path with the launch counts and the peak
+    memory set to 0 just before; each kernel must launch ``per_step`` times
+    a step. Returns the peak."""
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        bad = {k: float(v) for k, v in metrics.items() if not math.isfinite(float(v))}
+        if bad:
+            raise AssertionError(f"SD knobs ({label}): non-finite metrics {bad}")
+    counts, peak = dict(launch_counts), torch.cuda.max_memory_allocated()
+    expected = {k: steps * per_step.get(k, 0) for k in counts}
+    if counts != expected:
+        raise AssertionError(f"SD knobs ({label}): launches {counts}, expected {expected}")
+    print(f"SD knobs {label}: steps {[round(t, 4) for t in seconds]} s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {json.dumps(counts, sort_keys=True)}")
+    return peak
+
+
+def check_batched_pull(torch, model, schedule, batch, gen):
+    """One microbatch's (g_x, g_a) of the SD path by one batched pull and by
+    two pulls from the same forward and draws, in bf16 through the kernels,
+    each held to the same gradients in fp32 (TF32 off; the fp32 kernels). A
+    UNet's gradient has no closed Σ|terms| bound, so the fp32 gradients
+    stand in as phase 4's float64 reference does: in every tensor the
+    batched pull's largest and RMS errors must be at most twice the two
+    pulls' (plus 2⁻¹⁶ of the tensor's largest |g|)."""
+    from siss_tpu_torch.diffusion import q_sample
+    from siss_tpu_torch.ops.batched import contiguous_norm_inputs
+    from siss_tpu_torch.ops.siss import siss_weighted_sums
+    from siss_tpu_torch.train import cond_unet_eps_apply
+
+    params = list(model.parameters())
+    keep, forget, cond = batch["all"][0], batch["deletion"][0], batch["conditioning"][0]
+    noise = torch.randn(keep.shape, generator=gen, device=keep.device)
+    t = torch.full((keep.shape[0],), 999, device=keep.device)
+    mix = q_sample(schedule, keep, noise, t)   # the keep side of the mixture
+
+    def losses():
+        preds = cond_unet_eps_apply(model, mix, t, cond)
+        wlx, wla, _ = siss_weighted_sums(preds, mix, keep, forget, schedule.gamma[t],
+                                         schedule.sigma[t], 0.5)
+        return wlx, wla
+
+    def two_pulls():
+        wlx, wla = losses()
+        return (torch.autograd.grad(wlx, params, retain_graph=True),
+                torch.autograd.grad(wla, params))
+
+    two = two_pulls()
+    with contiguous_norm_inputs(model):
+        wlx, wla = losses()
+        seeds = (torch.tensor([1.0, 0.0], device=keep.device),
+                 torch.tensor([0.0, 1.0], device=keep.device))
+        both = torch.autograd.grad((wlx, wla), params, seeds, is_grads_batched=True)
+    compute, model.dtype = model.dtype, torch.float32
+    try:
+        ref = two_pulls()
+    finally:
+        model.dtype = compute
+    worst = (0.0, 0.0)
+    for which in (0, 1):
+        for g2, b, r in zip(two[which], both, ref[which]):
+            r = r.float()
+            floor = 2 ** -16 * float(r.abs().max())
+            e2, eb = (g.float() - r for g in (g2, b[which]))
+            for i, norm in enumerate((lambda e: float(e.abs().max()),
+                                      lambda e: float(e.square().mean().sqrt()))):
+                bound = 2 * norm(e2) + floor   # 0 where the gradient is exactly 0
+                ratio = norm(eb) / bound if bound else (0.0 if norm(eb) == 0 else math.inf)
+                worst = tuple(max(w, ratio) if j == i else w for j, w in enumerate(worst))
+    if not max(worst) <= 1.0:
+        raise AssertionError(f"batched pull against two pulls: error against fp32 at "
+                             f"{worst[0]:.3f} (largest) and {worst[1]:.3f} (RMS) of its bound")
+    print(f"SD knobs batched pull against two pulls (one microbatch, bf16 autocast, kernels; "
+          f"reference: the fp32 gradients): worst tensor at {worst[0]:.4f} (largest error) and "
+          f"{worst[1]:.4f} (RMS) of its bound, 2 × the two pulls' error + 2⁻¹⁶·max|g|")
+
+
+def phase_sd_knobs(torch, card):
+    """8c(b): the full-width SD step of phase 8 on one built UNet: (0) the
+    default knobs, (i) the memory mode, (ii) the batched dual backward with
+    remat_policy=dots, each with its launches; the memory mode's peak must
+    be at least 4 GiB under the default's."""
+    import dataclasses
+    import gc
+
+    from siss_tpu_torch.diffusion import sd_noise_schedule
+    from siss_tpu_torch.profile_step import SD_ACCUM, SD_ADAMW, SD_STEP_KW, make_sd_path
+    from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
+                                      build_optimizer, cond_unet_eps_apply)
+
+    state, step, batch, gen = make_sd_path()
+    model = state.model
+    schedule = sd_noise_schedule(device=batch["all"].device)
+    sites = SD_FLASH_SITES * SD_ACCUM
+    per_step = {"flash_fwd": sites, "flash_bwd_dkv": 2 * sites, "flash_bwd_dq": 2 * sites,
+                "siss_reduce": SD_ACCUM, "siss_bwd": 2 * SD_ACCUM}
+    default_peak = knob_steps(torch, "(0) default knobs", state, step, batch, gen, 1, per_step)
+
+    def fresh(opt_extra, **step_kw):
+        opt, sched = build_optimizer({**SD_ADAMW, **opt_extra}, model.parameters())
+        return (TrainState.create(model, opt, sched),
+                build_deletion_train_step(cond_unet_eps_apply, schedule,
+                                          DeletionStepConfig(**SD_STEP_KW, **step_kw)))
+
+    del state, step
+    gc.collect()
+    state, step = fresh({"mu_dtype": "bfloat16", "nu_dtype": "bfloat16"},
+                        grad_accum_dtype="bfloat16", param_cast_dtype="bfloat16")
+    memory_peak = knob_steps(torch, "(i) memory mode (bf16 Adam moments, accumulators, "
+                             "param cast)", state, step, batch, gen, 2, per_step)
+    print(f"SD knobs ({card}): peak memory default {default_peak / 2**30:.2f} GiB, memory mode "
+          f"{memory_peak / 2**30:.2f} GiB: {(default_peak - memory_peak) / 2**30:.2f} GiB less")
+    if not default_peak - memory_peak >= MEMORY_MODE_SAVING:
+        raise AssertionError(f"the memory mode's step peak is not "
+                             f"{MEMORY_MODE_SAVING / 2**30:.0f} GiB under the default's")
+
+    del state, step
+    gc.collect()
+    model.config = dataclasses.replace(model.config, remat_policy="dots")
+    check_batched_pull(torch, model, schedule, batch, gen)
+    state, step = fresh({}, batched_dual_backward=True)
+    # One batched pull: each flash backward kernel launches once a site (the
+    # two seeds folded into its batch), the SISS backward once a seed.
+    knob_steps(torch, "(ii) batched dual backward, remat_policy=dots", state, step, batch, gen,
+               2, dict(per_step, flash_bwd_dkv=sites, flash_bwd_dq=sites))
 
 
 TSHIRT_DATA = ROOT / "data" / "datasets" / "mnist_with_tshirt.npz"
@@ -1730,6 +2022,8 @@ def main() -> int:
     phase_celeb_task(torch, card)
     sd_counts = phase_sd_path(torch)
     phase_sd_task(torch, card)
+    phase_sd_knobs(torch, card)
+    phase_sd_fast_path(torch, card)
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed

@@ -18,17 +18,29 @@ wherever they apply) or ``auto``. ``gradient_checkpointing`` recomputes
 each resnet, and each Transformer2D when ``remat_attention``, in the
 backward; ``ff_impl="remat"`` recomputes the feed-forward. All checkpoints
 are non-reentrant, so two ``autograd.grad`` pulls through one forward work.
+
+``remat_policy`` picks what those checkpointed blocks save, as the flax
+module's ``jax.checkpoint`` policies do: None saves nothing and recomputes
+the whole block; ``"dots"`` (``checkpoint_dots``) saves the outputs of the
+matmuls and convolutions and recomputes the rest; ``"dots_no_batch"``
+(``dots_with_no_batch_dims_saveable``) saves only the matmuls without batch
+dims (the linear layers), recomputing the convolutions and the attention's
+batched products. The flash kernels' ``FlashAttention`` is no aten op that a
+policy can name: its forward runs again in the recomputation under every
+policy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from siss_tpu_torch.device import resolve_device
@@ -221,6 +233,58 @@ class Transformer2D(nn.Module):
         return self.proj_out(h) + x
 
 
+_MATMULS = ("mm", "addmm")
+_BATCHED_MATMULS = ("bmm", "baddbmm")
+# The aten ops each remat policy saves: matmuls (the linear layers; under
+# "dots" also the batched products) and, under "dots", convolutions.
+_SAVED_OPS = {"dots": _MATMULS + _BATCHED_MATMULS + ("convolution",),
+              "dots_no_batch": _MATMULS}
+
+
+class _KeepOps(TorchDispatchMode):
+    """The forward of a checkpointed block: keeps the outputs of the ops in
+    ``names``, in call order."""
+
+    def __init__(self, names, kept):
+        super().__init__()
+        self.names, self.kept = names, kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket.__name__ in self.names:
+            self.kept.append(out.detach())
+        return out
+
+
+class _ReuseOps(TorchDispatchMode):
+    """A recomputation of that block: those ops' kept outputs in place of
+    running them again. Every recomputation (one per backward pull) starts
+    from the first."""
+
+    def __init__(self, names, kept):
+        super().__init__()
+        self.names, self.kept, self.next = names, kept, 0
+
+    def __enter__(self):
+        self.next = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ not in self.names:
+            return func(*args, **(kwargs or {}))
+        self.next += 1
+        return self.kept[self.next - 1].detach()
+
+
+def _policy_contexts(names):
+    """``checkpoint``'s ``context_fn`` for a remat policy. PyTorch's own
+    selective checkpointing hands each kept output out once, so a second
+    pull through the same forward (the SISS step's two pulls) fails there;
+    here the kept outputs serve every pull, as JAX's residuals do."""
+    kept = []
+    return _KeepOps(names, kept), _ReuseOps(names, kept)
+
+
 class UNet2DCondition(nn.Module):
     """ε-prediction UNet: ``model(x_nchw, t, encoder_hidden_states) -> eps`` in fp32."""
 
@@ -228,11 +292,8 @@ class UNet2DCondition(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
-        if cfg.gradient_checkpointing and cfg.remat_policy is not None:
-            if cfg.remat_policy in ("dots", "dots_no_batch"):
-                raise NotImplementedError(
-                    f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP Queue 1 "
-                    "item 11d, remat_policy); use remat_policy=None")
+        if (cfg.gradient_checkpointing and cfg.remat_policy is not None
+                and cfg.remat_policy not in _SAVED_OPS):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         ch0 = cfg.block_out_channels[0]
         temb = ch0 * 4
@@ -285,10 +346,15 @@ class UNet2DCondition(nn.Module):
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def _remat(self, module, *args):
-        """Run ``module``, recomputed in the backward when checkpointing."""
-        if torch.is_grad_enabled():
+        """Run ``module``, recomputed in the backward when checkpointing, but
+        for what ``remat_policy`` saves."""
+        if not torch.is_grad_enabled():
+            return module(*args)
+        if self.config.remat_policy is None:
             return checkpoint(module, *args, use_reentrant=False)
-        return module(*args)
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=functools.partial(_policy_contexts,
+                                                       _SAVED_OPS[self.config.remat_policy]))
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,8 @@ import ctypes
 
 import torch
 
+from siss_tpu_torch.ops.batched import rebatch, unbatch
+
 #: Kernel launches since the last ``reset_launch_counts()``, by kernel name.
 launch_counts = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
@@ -424,10 +426,22 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        di = row_dot(o, do)
-        dk, dv = flash_bwd_dkv(q, k, v, lse, do, di, ctx.scale)
-        dq = flash_bwd_dq(q, k, v, lse, do, di, ctx.scale)
-        return dq, dk, dv, None
+        do, level = unbatch(do)
+        if level is None:
+            di = row_dot(o, do)
+            dk, dv = flash_bwd_dkv(q, k, v, lse, do, di, ctx.scale)
+            dq = flash_bwd_dq(q, k, v, lse, do, di, ctx.scale)
+            return dq, dk, dv, None
+        # A stack of S cotangents (``autograd.grad(..., is_grads_batched=True)``):
+        # folded into the batch, so each backward kernel launches once, at
+        # (S·B, H, N, d), on S contiguous copies of q, k, v, o and lse.
+        S, (B, H, N, d) = do.shape[0], q.shape
+        q2, k2, v2, o2, lse2 = (torch.cat([t] * S) for t in (q, k, v, o, lse))
+        do2 = do.reshape(S * B, H, N, d)
+        di = row_dot(o2, do2)
+        dk, dv = flash_bwd_dkv(q2, k2, v2, lse2, do2, di, ctx.scale)
+        dq = flash_bwd_dq(q2, k2, v2, lse2, do2, di, ctx.scale)
+        return tuple(rebatch(g.reshape(S, B, H, N, d), level) for g in (dq, dk, dv)) + (None,)
 
 
 def flash_attention(q, k, v, scale: float):

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from siss_tpu_torch.ops.batched import rebatch, unbatch
+
 #: Kernel launches since the last ``reset_launch_counts()``, by kernel name.
 launch_counts = {"siss_reduce": 0, "siss_bwd": 0}
 
@@ -186,11 +188,22 @@ class SissCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cot_x, cot_a, *_aux):
         p2, m2, x2, a2, gamma, inv_sigma, iw_x, iw_a = ctx.saved_tensors
+        (cot_x, lx), (cot_a, la) = unbatch(cot_x), unbatch(cot_a)
+        level = lx if lx is not None else la
         zero = torch.zeros((), dtype=torch.float32, device=p2.device)
-        cx = (zero if cot_x is None else cot_x) * iw_x
-        ca = (zero if cot_a is None else cot_a) * iw_a
-        g2 = siss_grad_preds(p2, m2, x2, a2, gamma, inv_sigma, cx, ca)
-        return (g2.to(p2.dtype),) + (None,) * 7
+        cot_x = zero if cot_x is None else cot_x
+        cot_a = zero if cot_a is None else cot_a
+        if level is None:
+            g2 = siss_grad_preds(p2, m2, x2, a2, gamma, inv_sigma, cot_x * iw_x, cot_a * iw_a)
+            return (g2.to(p2.dtype),) + (None,) * 7
+        # A stack of S seed pairs (``autograd.grad(..., is_grads_batched=True)``):
+        # one backward launch per pair, into one [S, B, P] gradient.
+        S = max(c.shape[0] if c.ndim else 1 for c in (cot_x, cot_a))
+        cx = cot_x.reshape(-1, 1).expand(S, 1) * iw_x
+        ca = cot_a.reshape(-1, 1).expand(S, 1) * iw_a
+        g2 = torch.stack([siss_grad_preds(p2, m2, x2, a2, gamma, inv_sigma, cx[s], ca[s])
+                          for s in range(S)])
+        return (rebatch(g2.to(p2.dtype), level),) + (None,) * 7
 
 
 def siss_weighted_sums(preds, mix, x_og, a_og, gamma, sigma, lambd):

@@ -25,6 +25,11 @@ import torch
 
 MAIN_ACCUM, MAIN_MB = 4, 16
 SD_ACCUM, SD_MB = 16, 1
+# configs/delete_sd.yaml's optimizer and step knobs.
+SD_ADAMW = {"_target_": "torch.optim.AdamW", "lr": 1e-5, "betas": [0.9, 0.999],
+            "weight_decay": 1e-2, "eps": 1e-8}
+SD_STEP_KW = dict(loss_params=(("lambd", 0.5),), scaling_norm=750.0, max_grad_norm=1.0,
+                  grad_accum_steps=SD_ACCUM, t_min=999, t_max=1000)
 TSHIRT_MB = 64
 
 # Kernel-name fragments → family, first match wins.
@@ -81,14 +86,10 @@ def make_sd_path(device="cuda"):
     cfg = UNet2DConditionConfig.sd_v1(gradient_checkpointing=True, attention_impl="flash",
                                       remat_attention=False)
     model = build_unet_cond(cfg, seed=0, dtype=torch.bfloat16, device=device)
-    opt, sched = build_optimizer({"_target_": "torch.optim.AdamW", "lr": 1e-5,
-                                  "betas": [0.9, 0.999], "weight_decay": 1e-2, "eps": 1e-8},
-                                 model.parameters())
+    opt, sched = build_optimizer(SD_ADAMW, model.parameters())
     state = TrainState.create(model, opt, sched)
-    step = build_deletion_train_step(
-        cond_unet_eps_apply, sd_noise_schedule(device=device),
-        DeletionStepConfig(loss_params=(("lambd", 0.5),), scaling_norm=750.0, max_grad_norm=1.0,
-                           grad_accum_steps=SD_ACCUM, t_min=999, t_max=1000))
+    step = build_deletion_train_step(cond_unet_eps_apply, sd_noise_schedule(device=device),
+                                     DeletionStepConfig(**SD_STEP_KW))
     gen = torch.Generator(device=device).manual_seed(0)
     hw, ch = cfg.sample_size, cfg.in_channels
     batch = {k: torch.randn(SD_ACCUM, SD_MB, hw, hw, ch, generator=gen, device=device)

@@ -22,10 +22,16 @@ stream, then the step's draws), so they train on the same latents.
 Every ``validation_steps`` steps, ``eval_batches`` CFG DDIM samples per
 prompt (each batch from a generator seeded with ``seed + b``), their panel
 and, with ``metrics.noise_norm``, each prompt's text-conditional noise-norm
-curve appended to its history and logged as a line series. Progress is
+curve appended to its history and logged as a line series. The SD metrics
+score each prompt's samples: ``metrics.fraction_deletion`` (the k-means
+classifier's memorised fraction, ``metrics/deletion_fraction_{i}``, and the
+``deletion_steps_{i}`` summary in optimizer steps the first time it is 0),
+``metrics.sscd`` (SSCD similarity to ``data_files.mem_img_path``, mean and
+max: ``metrics/sscd_{i}``, ``metrics/sscd_max_{i}``) and
+``metrics.clip_iqa`` (``metrics/clip_iqa_{i}``); SSCD and CLIP-IQA disable
+themselves with a message when their weights are missing. Progress is
 counted in images: the tracker's step is the image count. The superfactor
-decays once per optimizer step. ``metrics.fraction_deletion``, ``sscd`` and
-``clip_iqa`` are not ported yet and raise.
+decays once per optimizer step.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from siss_tpu_torch.data.latent_cache import (build_moment_cache, cache_nbytes,
                                               sample_from_moments)
 from siss_tpu_torch.diffusion import spaced_timesteps
 from siss_tpu_torch.diffusion.sd_pipeline import StableDiffusionPipeline, sd_noise_schedule
+from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
+from siss_tpu_torch.metrics.kmeans_mem import KMeansMemClassifier
+from siss_tpu_torch.metrics.sscd import SSCDEvaluator
 from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig, UNet2DConditionConfig,
                                    build_clip_text, build_unet_cond, build_vae,
                                    load_clip_tokenizer)
@@ -50,11 +59,7 @@ from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, cond_unet_eps_apply)
 from siss_tpu_torch.utils import CheckpointManager, PreemptionGuard
-from siss_tpu_torch.utils.checkpoint import read_state_dict
-
-_WEIGHT_FILES = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
-                 "diffusion_pytorch_model.safetensors", "model.safetensors")
-_UNPORTED_METRICS = ("fraction_deletion", "sscd", "clip_iqa")
+from siss_tpu_torch.utils.checkpoint import read_state_dict, weights_file
 
 
 class _Images:
@@ -102,13 +107,10 @@ class DeleteSD(Task):
         cfg = self.cfg
         self.fill_cfg()
         metrics_cfg = cfg.get("metrics") or {}
-        for name in _UNPORTED_METRICS:
-            if metrics_cfg.get(name):
-                raise NotImplementedError(f"metrics.{name} is not ported yet (ROADMAP Queue 1 "
-                                          "item 11c, the SD metrics)")
-        #: Seconds of the set-up parts (``models``, ``latent_cache``), and one
-        #: record per validation: its step and the seconds of its parts
-        #: (``sampling``, ``decode``, ``norms``).
+        #: Seconds of the set-up parts (``models``, ``latent_cache``,
+        #: ``metrics``), and one record per validation: its step and the
+        #: seconds of its parts (``sampling``, ``decode``, ``norms``, and
+        #: ``deletion_fraction``, ``sscd``, ``clip_iqa`` for each metric on).
         self.setup_seconds, self.eval_records = {}, []
         tracker = self.make_tracker()
         seed = int(cfg.seed)
@@ -224,6 +226,10 @@ class DeleteSD(Task):
         forget_loader = BatchLoader(mem_src, RepeatedSampler(len(mem_imgs),
                                                              training_steps * accum * bs), bs)
 
+        t0 = time.perf_counter()
+        scorers = self._sd_metrics(metrics_cfg)
+        self.setup_seconds["metrics"] = time.perf_counter() - t0
+
         # Per prompt, the history of its averaged text-conditional noise-norm
         # curves (ascending timesteps), one appended per validation.
         noise_norm_history = [[] for _ in prompt_embeds]
@@ -233,7 +239,8 @@ class DeleteSD(Task):
 
         def log_validation(step, img_count):
             model = self.eval_model(state)
-            record = {"step": step, "sampling": 0.0, "decode": 0.0, "norms": 0.0}
+            record = {"step": step, "sampling": 0.0, "decode": 0.0, "norms": 0.0,
+                      **{name: 0.0 for name in scorers}}
             logs = {}
 
             def timed(part, fn, *args, **kwargs):
@@ -260,8 +267,16 @@ class DeleteSD(Task):
                 if norm_curves:
                     timed("norms", self._log_norms, tracker, logs, pi, norm_curves,
                           noise_norm_history[pi], norm_xs, img_count)
+                if imgs_list:
+                    imgs = np.concatenate(imgs_list)
+                    for name, score in scorers.items():
+                        timed(name, score, logs, pi, imgs)
+                    frac = logs.get(f"metrics/deletion_fraction_{pi}")
+                    # per-prompt steps to deletion, in optimizer steps
+                    if frac == 0.0 and f"deletion_steps_{pi}" not in tracker.summary:
+                        tracker.log_summary(f"deletion_steps_{pi}", img_count / (bs * accum))
             tracker.log(logs, step=img_count)
-            self.eval_seconds.append(record["sampling"] + record["decode"] + record["norms"])
+            self.eval_seconds.append(sum(v for k, v in record.items() if k != "step"))
             self.eval_records.append(record)
 
         ckpt = CheckpointManager(str(cfg.output_dir), cfg.get("checkpoints_total_limit"),
@@ -350,11 +365,44 @@ class DeleteSD(Task):
     def _load_weights(self, sub: str, model: torch.nn.Module) -> None:
         """``<pretrained_model_name_or_path>/<sub>/``'s state dict, if any."""
         path = os.path.abspath(os.path.join(str(self.cfg.pretrained_model_name_or_path), sub))
-        for name in _WEIGHT_FILES:
-            if os.path.isfile(os.path.join(path, name)):
-                model.load_state_dict(read_state_dict(os.path.join(path, name)))
-                return
-        print(f"[delete_sd] WARNING: no converted weights at {path}; using random init")
+        found = weights_file(path)
+        if found is None:
+            print(f"[delete_sd] WARNING: no converted weights at {path}; using random init")
+            return
+        model.load_state_dict(read_state_dict(found))
+
+    def _sd_metrics(self, metrics_cfg):
+        """The SD metrics turned on in ``metrics_cfg`` whose models load, by
+        record name: each ``score(logs, prompt_index, imgs)`` logs its keys."""
+        cfg, scorers = self.cfg, {}
+        if metrics_cfg.get("fraction_deletion"):
+            classifier = KMeansMemClassifier.load(
+                str(metrics_cfg.fraction_deletion.classifier_path), self.device)
+
+            def deletion_fraction(logs, pi, imgs):
+                logs[f"metrics/deletion_fraction_{pi}"] = classifier.fraction(imgs)
+            scorers["deletion_fraction"] = deletion_fraction
+        mem_path = cfg.data_files.get("mem_img_path")
+        sscd = (SSCDEvaluator.load(str(metrics_cfg.sscd.model_path), self.device)
+                if metrics_cfg.get("sscd") else None)
+        if sscd is not None and mem_path and os.path.exists(str(mem_path)):
+            from PIL import Image
+
+            mem_img = np.asarray(Image.open(str(mem_path)), np.float32) / 255.0
+
+            def sscd_score(logs, pi, imgs):
+                # the reference logs the mean over the samples; the max
+                # (worst-case memorisation) under its own key
+                sims = sscd.similarities(imgs, mem_img)
+                logs[f"metrics/sscd_{pi}"] = float(sims.mean())
+                logs[f"metrics/sscd_max_{pi}"] = float(sims.max())
+            scorers["sscd"] = sscd_score
+        clip_iqa = CLIPIQA.try_load(device=self.device) if metrics_cfg.get("clip_iqa") else None
+        if clip_iqa is not None:
+            def clip_iqa_score(logs, pi, imgs):
+                logs[f"metrics/clip_iqa_{pi}"] = clip_iqa.score(imgs)
+            scorers["clip_iqa"] = clip_iqa_score
+        return scorers
 
     def _optimizer_cfg(self) -> dict:
         """The flat ``adam_*`` knobs as an AdamW config, or the ``optimizer:``

@@ -3,8 +3,13 @@
 The schedules are plain functions of the update count, evaluated at the
 count before the update as optax does; the train step writes
 ``schedule(state.step)`` into the optimizer's param groups before each
-``optimizer.step()``. AdamW/Adam map to ``torch.optim.AdamW``/``Adam`` with
-the same betas, eps and (decoupled) weight decay as ``optax.adamw``/``adam``.
+``optimizer.step()``, and every optimizer here reads its ``lr`` from there.
+AdamW/Adam map to ``torch.optim.AdamW``/``Adam`` with the same betas, eps
+and (decoupled) weight decay as ``optax.adamw``/``adam``. With
+``mu_dtype``/``nu_dtype`` (the SD task's single-card memory mode) they map
+to ``Adam`` below, which stores its moments in those types as optax does and
+torch's optimizers cannot. ``adafactor`` is the JAX package's hand-built
+optax chain (``Adafactor`` below).
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -49,32 +55,181 @@ def build_lr_schedule(name: str, base_lr: float, warmup_steps: int = 0,
     return sched
 
 
+def _decayed(moment: torch.Tensor, decay: float) -> torch.Tensor:
+    """decay·moment as optax forms it: in the stored moment's type, with the
+    decay rounded to that type (JAX's weak typing), then fp32."""
+    return (moment * torch.tensor(decay, dtype=moment.dtype, device=moment.device)).float()
+
+
+class Adam(torch.optim.Optimizer):
+    """``optax.adam``/``adamw`` with ``mu_dtype`` (and the JAX package's
+    ``cast_nu_dtype``): per update, the new moments are formed in fp32 from
+    the stored ones, the step is taken from those uncast fp32 moments, and
+    only then are they stored cast to ``mu_dtype``/``nu_dtype``. The update
+    is p − lr·(m̂/(√v̂ + eps) + wd·p): decoupled decay, 0 for Adam."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype: Optional[torch.dtype] = None,
+                 nu_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            (b1, b2), lr, eps, wd = group["betas"], group["lr"], group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                    st["nu"] = torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
+                st["step"] += 1
+                mu = (1 - b1) * g + _decayed(st["mu"], b1)
+                nu = (1 - b2) * (g * g) + _decayed(st["nu"], b2)
+                mu_hat = mu / np.float32(1 - np.float32(b1) ** st["step"])
+                nu_hat = nu / np.float32(1 - np.float32(b2) ** st["step"])
+                u = mu_hat / (nu_hat.sqrt() + eps)
+                if wd:
+                    u = u + wd * p
+                p.sub_((lr * u).to(p.dtype))
+                st["mu"], st["nu"] = mu.to(st["mu"].dtype), nu.to(st["nu"].dtype)
+
+    def load_state_dict(self, state_dict):
+        """torch casts loaded floating state to each param's type; the
+        moments go back to their own types."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            st["mu"] = st["mu"].to(self.mu_dtype or st["mu"].dtype)
+            st["nu"] = st["nu"].to(self.nu_dtype or st["nu"].dtype)
+
+
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims`` with ``min_dim_size_to_factor`` 128: the
+    (second largest, largest) dims of ``shape`` when the smaller is ≥ 128,
+    else None. A torch OIHW or [out, in] param has the same two dims as its
+    flax HWIO or [in, out] counterpart, and the factored estimate is
+    symmetric in them, so both packages factor alike."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape, kind="stable")
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """The JAX package's ``adafactor`` chain, per parameter:
+
+    1. ``scale_by_factored_rms(decay_rate, epsilon)``: the second-moment
+       estimate, factored over two dims (``factored_dims``) or full, with
+       decay 1 − (k+1)^−decay_rate at update k;
+    2. ``clip_by_block_rms(1.0)``;
+    3. with ``multiply_by_parameter_scale``, × max(rms(p), 1e-3);
+    4. × lr (before the momentum);
+    5. with ``momentum``, its EMA (not debiased);
+    6. with ``weight_decay``, + lr·wd·p (AdamW's decay, outside the EMA);
+    7. p −= the result.
+    """
+
+    def __init__(self, params, lr: float, decay_rate: float = 0.8, eps: float = 1e-30,
+                 momentum: Optional[float] = None, weight_decay: float = 0.0,
+                 multiply_by_parameter_scale: bool = False):
+        super().__init__(params, dict(lr=lr, decay_rate=decay_rate, eps=eps, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      multiply_by_parameter_scale=multiply_by_parameter_scale))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, eps, momentum = group["lr"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                st = self.state[p]
+                dims = factored_dims(p.shape)
+                if not st:
+                    st["step"] = 0
+                    if dims is None:
+                        st["v"] = torch.zeros_like(p)
+                    else:
+                        st["v_row"] = torch.zeros_like(p.mean(dims[1]))
+                        st["v_col"] = torch.zeros_like(p.mean(dims[0]))
+                    if momentum is not None:
+                        st["ema"] = torch.zeros_like(p)
+                t = torch.tensor(st["step"] + 1, dtype=torch.float32)
+                decay = float(1.0 - t ** -group["decay_rate"])
+                g2 = g * g + eps
+                if dims is None:
+                    st["v"] = decay * st["v"] + (1.0 - decay) * g2
+                    u = g * st["v"] ** -0.5
+                else:
+                    d1, d0 = dims
+                    st["v_row"] = decay * st["v_row"] + (1.0 - decay) * g2.mean(d0)
+                    st["v_col"] = decay * st["v_col"] + (1.0 - decay) * g2.mean(d1)
+                    row_mean = st["v_row"].mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    row = (st["v_row"] / row_mean) ** -0.5
+                    u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
+                u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
+                if group["multiply_by_parameter_scale"]:
+                    rms = p.float().square().mean().sqrt()
+                    u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+                u = lr * u
+                if momentum is not None:
+                    u = st["ema"] = (1.0 - momentum) * u + momentum * st["ema"]
+                if group["weight_decay"]:
+                    u = u + lr * group["weight_decay"] * p
+                p.sub_(u.to(p.dtype))
+                st["step"] += 1
+
+
+def _dtype(name) -> Optional[torch.dtype]:
+    return getattr(torch, str(name)) if name else None
+
+
 def build_optimizer(cfg: Any, params: Iterable[torch.nn.Parameter],
                     lr_scheduler: str = "constant", warmup_steps: int = 0,
                     total_steps: Optional[int] = None) -> Tuple[torch.optim.Optimizer, Schedule]:
     """``cfg``: mapping with torch.optim.AdamW's keys (lr, betas,
-    weight_decay, eps) and an optional ``_target_``. Returns the optimizer
-    and its LR schedule."""
+    weight_decay, eps), an optional ``_target_`` and, for AdamW/Adam,
+    optional ``mu_dtype``/``nu_dtype``; for ``adafactor``, optional
+    ``decay_rate``, ``eps`` (1e-30 unless set), ``momentum`` and
+    ``multiply_by_parameter_scale``. Returns the optimizer and its LR
+    schedule."""
     target = str(cfg.get("_target_", "torch.optim.AdamW"))
     lr = float(cfg["lr"])
     betas = tuple(float(b) for b in cfg.get("betas", [0.9, 0.999]))
     wd = float(cfg.get("weight_decay", 0.0))
     eps = float(cfg.get("eps", cfg.get("adam_epsilon", 1e-8)))
-    for knob in ("mu_dtype", "nu_dtype"):
-        if cfg.get(knob, None):
-            raise NotImplementedError(
-                f"{knob} is not ported yet (ROADMAP Queue 1 item 6b, optimizer state dtypes)")
+    mu_dtype, nu_dtype = _dtype(cfg.get("mu_dtype", None)), _dtype(cfg.get("nu_dtype", None))
     sched = build_lr_schedule(lr_scheduler, lr, warmup_steps, total_steps)
     params = list(params)
     name = target.rsplit(".", 1)[-1].lower()
-    if name == "adamw":
+    if name in ("adafactor", "sgd") and (mu_dtype or nu_dtype):
+        raise ValueError("mu_dtype/nu_dtype are Adam-state options; they have no effect with "
+                         f"{name} — remove them or switch the optimizer target")
+    if name in ("adamw", "adam") and (mu_dtype or nu_dtype):
+        opt = Adam(params, lr=sched(0), betas=betas, eps=eps,
+                   weight_decay=wd if name == "adamw" else 0.0,
+                   mu_dtype=mu_dtype, nu_dtype=nu_dtype)
+    elif name == "adamw":
         opt = torch.optim.AdamW(params, lr=sched(0), betas=betas, eps=eps, weight_decay=wd)
     elif name == "adam":
         opt = torch.optim.Adam(params, lr=sched(0), betas=betas, eps=eps, weight_decay=0.0)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=sched(0), momentum=float(cfg.get("momentum", 0.0)))
     elif name == "adafactor":
-        raise NotImplementedError("adafactor is not ported yet (ROADMAP Queue 1 item 6b)")
+        momentum = cfg.get("momentum", None)
+        opt = Adafactor(params, lr=sched(0), decay_rate=float(cfg.get("decay_rate", 0.8)),
+                        eps=float(cfg["eps"]) if "eps" in cfg else 1e-30,
+                        momentum=None if momentum is None else float(momentum), weight_decay=wd,
+                        multiply_by_parameter_scale=bool(cfg.get("multiply_by_parameter_scale",
+                                                                 False)))
     else:
         raise ValueError(f"Unsupported optimizer target {target!r}")
     return opt, sched

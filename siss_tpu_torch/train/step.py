@@ -16,20 +16,28 @@ paths, picked by ``loss_fn`` as in the JAX step:
 * the two-forward path (``double_forward_with_neg_del``, ``erasediff``):
   each term differentiated through only its own UNet call.
 
-The two gradients accumulate in fp32 over the microbatches and are
-averaged; then the surgery g = clip(g_x − s·g_a, max_grad_norm) with
-s = scaling_norm/‖g_a‖, or EraseDiff's projection s = −max(η −
-⟨g_x, g_a⟩/‖g_a‖², 0); then the optimizer and EMA updates.
-``fused_surgery`` picks between the JAX step's two forms of the surgery,
-which differ only in how EraseDiff's ‖g_a‖² is formed (a sum of squares, or
-the square of the norm); the combine and the clip are one sequence here.
+The two gradients accumulate over the microbatches in ``grad_accum_dtype``
+(each microbatch's gradient cast on add) and are averaged; then the surgery
+g = clip(g_x − s·g_a, max_grad_norm) with s = scaling_norm/‖g_a‖, or
+EraseDiff's projection s = −max(η − ⟨g_x, g_a⟩/‖g_a‖², 0), formed in fp32;
+then the optimizer and EMA updates. ``fused_surgery`` picks between the JAX
+step's two forms of the surgery, which differ only in how EraseDiff's ‖g_a‖²
+is formed (a sum of squares, or the square of the norm); the combine and
+the clip are one sequence here.
+
+The SD options, as in the JAX step: ``noise_offset`` adds a per-sample,
+per-channel draw to the noise, ``input_perturbation`` perturbs the noise
+that forms x_t only (the loss keeps the unperturbed noise); either sends
+SISS down the unfused path. ``param_cast_dtype`` casts the fp32 params once
+a step and pulls the gradients with respect to the cast copies.
+``batched_dual_backward`` takes the two pulls of a shared forward as one
+backward over the stacked seeds (1, 0) and (0, 1)
+(``autograd.grad(..., is_grads_batched=True)``; ``ops.batched``).
 
 Dynamic loss scalars (``superfactor``, or λ off the fused path) are plain
 numbers or 0-d tensors, or [A] tensors that give each microbatch its own
 value. Normalisation matches the reference: each microbatch loss is
-``sum()/microbatch``, gradients are averaged over accumulation steps. The
-SD options of ROADMAP item 6b raise ``NotImplementedError`` when the step
-is built.
+``sum()/microbatch``, gradients are averaged over accumulation steps.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from siss_tpu_torch.losses.deletion import (
     SHARED_FORWARD_LOSSES,
     DeletionLoss,
 )
+from siss_tpu_torch.ops.batched import contiguous_norm_inputs
 from siss_tpu_torch.ops.siss import siss_weighted_sums
 from siss_tpu_torch.train.ema import ema_update
 from siss_tpu_torch.train.state import TrainState
@@ -73,7 +82,7 @@ def cond_unet_eps_apply(model: torch.nn.Module, x: torch.Tensor, t: torch.Tensor
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Global L2 norm of a list of tensors, accumulated in float32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
+    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -145,37 +154,66 @@ class DeletionStepConfig:
 
     @property
     def is_fused_siss(self) -> bool:
-        return self.loss_fn == "importance_sampling_with_mixture" and self.fused_siss
-
-
-def _check_ported(cfg: DeletionStepConfig) -> None:
-    checks = [
-        (cfg.noise_offset != 0.0, "noise_offset"),
-        (cfg.input_perturbation != 0.0, "input_perturbation"),
-        (cfg.batched_dual_backward, "batched_dual_backward"),
-        (cfg.grad_accum_dtype != "float32", f"grad_accum_dtype={cfg.grad_accum_dtype!r}"),
-        (cfg.param_cast_dtype is not None, "param_cast_dtype"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 6b)")
+        # The JAX step leaves the fused path when either SD noise option is on.
+        return (self.loss_fn == "importance_sampling_with_mixture" and self.fused_siss
+                and self.noise_offset == 0.0 and self.input_perturbation == 0.0)
 
 
 def draw_microbatch_randomness(generator: torch.Generator, A: int, mb: int, shape,
-                               t_min: int, t_max: int, device,
-                               uniform_target: bool = False) -> Dict[str, torch.Tensor]:
-    """The step's draws for A microbatches: noise ~ N(0,1) [A, mb, ...],
-    t ~ U{t_min..t_max−1} [A, mb], u ~ U[0,1) [A, mb] (the mixtures' keep
-    test) and, with ``uniform_target``, EraseDiff's forget target
-    "uniform" ~ U[0,1) [A, mb, ...]."""
+                               t_min: int, t_max: int, device, uniform_target: bool = False,
+                               noise_offset: bool = False,
+                               input_perturbation: bool = False) -> Dict[str, torch.Tensor]:
+    """The step's draws for A microbatches of [H, W, C] latents: noise ~
+    N(0,1) [A, mb, H, W, C], t ~ U{t_min..t_max−1} [A, mb], u ~ U[0,1) [A, mb]
+    (the mixtures' keep test); with ``uniform_target``, EraseDiff's forget
+    target "uniform" ~ U[0,1) [A, mb, H, W, C]; with ``noise_offset``, the
+    per-sample, per-channel "offset" ~ N(0,1) [A, mb, 1, 1, C]; with
+    ``input_perturbation``, "perturb" ~ N(0,1) [A, mb, H, W, C]."""
+    shape = tuple(shape)
     draws = {
-        "noise": torch.randn((A, mb) + tuple(shape), generator=generator, device=device),
+        "noise": torch.randn((A, mb) + shape, generator=generator, device=device),
         "t": torch.randint(t_min, t_max, (A, mb), generator=generator, device=device),
         "u": torch.rand((A, mb), generator=generator, device=device),
     }
     if uniform_target:
-        draws["uniform"] = torch.rand((A, mb) + tuple(shape), generator=generator, device=device)
+        draws["uniform"] = torch.rand((A, mb) + shape, generator=generator, device=device)
+    if noise_offset:
+        offset_shape = (A, mb) + (1,) * (len(shape) - 1) + shape[-1:]
+        draws["offset"] = torch.randn(offset_shape, generator=generator, device=device)
+    if input_perturbation:
+        draws["perturb"] = torch.randn((A, mb) + shape, generator=generator, device=device)
     return draws
+
+
+class _Call(torch.nn.Module):
+    """``_Call(model)(fn) = fn(model)``, so that ``torch.func.functional_call``
+    keeps the model's parameters replaced through all of ``fn``: its
+    backward pulls and the checkpoint recomputation inside them."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn):
+        return fn(self.model)
+
+
+def _cast_params(model: torch.nn.Module, dtype: torch.dtype):
+    """(copies of the model's fp32 params cast to ``dtype``, a ``call(fn)``
+    that runs ``fn(model)`` with the model computing from them). The
+    gradients are pulled with respect to the copies; a model that computes
+    in fp32 sees them upcast again, as flax promotes them."""
+    named = list(model.named_parameters())
+    cast = [p.detach().to(dtype).requires_grad_() if p.dtype == torch.float32 else p
+            for _, p in named]
+    compute = getattr(model, "dtype", torch.float32)
+    swapped = {f"model.{name}": c if c.dtype == compute else c.to(p.dtype)
+               for (name, p), c in zip(named, cast)}
+    wrapper = _Call(model)
+
+    def call(fn):
+        return torch.func.functional_call(wrapper, swapped, (fn,), strict=False)
+    return cast, call
 
 
 def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
@@ -192,20 +230,43 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
     ``cfg.loss_params``. The step updates ``state`` in place and returns it
     with a dict of 0-d metric tensors.
     """
-    _check_ported(cfg)
     loss_method = getattr(DeletionLoss(gamma=schedule.gamma, sigma=schedule.sigma), cfg.loss_fn)
     # Keep only the params the chosen loss accepts, so one config sweeps
     # across loss_fns without editing loss_params.
     accepted = set(inspect.signature(loss_method).parameters)
     static_params = {k: v for k, v in dict(cfg.loss_params).items() if k in accepted}
     draw_name = LOSS_DRAWS.get(cfg.loss_fn)
+    acc_dtype = getattr(torch, cfg.grad_accum_dtype)
+    cast_dtype = getattr(torch, cfg.param_cast_dtype) if cfg.param_cast_dtype else None
+
+    def noises(dr):
+        """(the loss's noise, the noise that forms x_t) of one microbatch."""
+        noise = dr["noise"]
+        if cfg.noise_offset > 0.0:
+            noise = noise + cfg.noise_offset * dr["offset"]
+        if cfg.input_perturbation > 0.0:
+            return noise, noise + cfg.input_perturbation * dr["perturb"]
+        return noise, noise
+
+    def two_pulls(loss_x, loss_a, params):
+        """g_x and g_a from one forward: two pulls, or one batched pull."""
+        if cfg.batched_dual_backward:
+            # The cotangents of (loss_x, loss_a) for both pulls: (1, 0), (0, 1).
+            seeds = (torch.tensor([1.0, 0.0], device=loss_x.device),
+                     torch.tensor([0.0, 1.0], device=loss_x.device))
+            g = torch.autograd.grad((loss_x, loss_a), params, seeds, is_grads_batched=True)
+            return [t[0] for t in g], [t[1] for t in g]
+        g_x = torch.autograd.grad(loss_x, params, retain_graph=True)
+        return g_x, torch.autograd.grad(loss_a, params)
 
     def microbatch_terms(model, keep, forget, cond, dr, dyn):
         """The loss method's outputs and stats for one microbatch."""
-        noise, t = dr["noise"], dr["t"]
-        all_samples = {"og_latents": keep, "noisy_latents": q_sample(schedule, keep, noise, t)}
+        t = dr["t"]
+        noise, input_noise = noises(dr)
+        all_samples = {"og_latents": keep,
+                       "noisy_latents": q_sample(schedule, keep, input_noise, t)}
         deletion_samples = {"og_latents": forget,
-                            "noisy_latents": q_sample(schedule, forget, noise, t)}
+                            "noisy_latents": q_sample(schedule, forget, input_noise, t)}
         params = {**static_params, **{k: v for k, v in dyn.items() if k in accepted}}
         out = loss_method(lambda x, tt, c: eps_apply(model, x, tt, c), dr.get(draw_name), t,
                           noise, cond, all_samples, deletion_samples, **params)
@@ -242,16 +303,15 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             stats.update(_tensor_stats(aux["iw_x"], "importance_weight_x"))
             stats.update(_tensor_stats(aux["iw_a"], "importance_weight_a"))
             # ONE forward, TWO backward pulls over the shared graph.
-            g_x = torch.autograd.grad(wlx / mb, params, retain_graph=True)
-            return g_x, torch.autograd.grad(wla / mb, params), stats
+            return (*two_pulls(wlx / mb, wla / mb, params), stats)
 
     elif cfg.is_shared_forward:
 
         def micro_grads(params, model, keep, forget, cond, dr, dyn):
             out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
             mb = keep.shape[0]
-            g_x = torch.autograd.grad(out.weighted_loss_x.sum() / mb, params, retain_graph=True)
-            return g_x, torch.autograd.grad(out.weighted_loss_a.sum() / mb, params), stats
+            return (*two_pulls(out.weighted_loss_x.sum() / mb, out.weighted_loss_a.sum() / mb,
+                               params), stats)
 
     else:  # double_forward_with_neg_del, erasediff
 
@@ -259,11 +319,13 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             # Each term through only its own UNet forward (2 forwards + 2
             # backwards; the loss method would run both forwards per term).
             mb = keep.shape[0]
-            noise, t = dr["noise"], dr["t"]
+            t = dr["t"]
+            noise, input_noise = noises(dr)
             target_a = dr["uniform"] if cfg.loss_fn == "erasediff" else noise
-            lx = (eps_apply(model, q_sample(schedule, keep, noise, t), t, cond) - noise) ** 2
+            lx = (eps_apply(model, q_sample(schedule, keep, input_noise, t), t, cond) - noise) ** 2
             g_x = torch.autograd.grad(lx.sum() / mb, params)
-            la = (eps_apply(model, q_sample(schedule, forget, noise, t), t, cond) - target_a) ** 2
+            la = (eps_apply(model, q_sample(schedule, forget, input_noise, t), t, cond)
+                  - target_a) ** 2
             g_a = torch.autograd.grad(la.sum() / mb, params)
             return g_x, g_a, {**_tensor_stats(lx, "loss_x"), **_tensor_stats(la, "loss_a")}
 
@@ -279,7 +341,9 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
                 raise ValueError("pass a torch.Generator or explicit draws")
             draws = draw_microbatch_randomness(generator, A, mb, keep_all.shape[2:],
                                                cfg.t_min, cfg.t_max, keep_all.device,
-                                               uniform_target=cfg.loss_fn == "erasediff")
+                                               uniform_target=cfg.loss_fn == "erasediff",
+                                               noise_offset=cfg.noise_offset > 0.0,
+                                               input_perturbation=cfg.input_perturbation > 0.0)
         # [A] scalars vary per microbatch (the task decays superfactor once
         # per microbatch); other scalars hold for every microbatch.
         per_mb = {k for k, v in dyn_scalars.items()
@@ -287,21 +351,26 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
 
         model = state.model
         params = list(model.parameters())
-        g_x_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        g_a_acc = None if cfg.is_scalar_path else [torch.zeros_like(p, dtype=torch.float32)
+        grad_of, call = ((params, lambda fn: fn(model)) if cast_dtype is None
+                         else _cast_params(model, cast_dtype))
+        g_x_acc = [torch.zeros_like(p, dtype=acc_dtype) for p in params]
+        g_a_acc = None if cfg.is_scalar_path else [torch.zeros_like(p, dtype=acc_dtype)
                                                    for p in params]
         stats_mb: Dict[str, List[torch.Tensor]] = {}
         for a in range(A):
             cond = None if cond_all is None else cond_all[a]
             dyn = {k: v[a] if k in per_mb else v for k, v in dyn_scalars.items()}
-            g_x, g_a, stats = micro_grads(params, model, keep_all[a], forget_all[a], cond,
-                                          {k: v[a] for k, v in draws.items()}, dyn)
-            torch._foreach_add_(g_x_acc, [g.float() for g in g_x])
+            dr = {k: v[a] for k, v in draws.items()}
+            with contiguous_norm_inputs(model, cfg.batched_dual_backward):
+                g_x, g_a, stats = call(lambda m: micro_grads(grad_of, m, keep_all[a],
+                                                             forget_all[a], cond, dr, dyn))
+            torch._foreach_add_(g_x_acc, [g.to(acc_dtype) for g in g_x])
             if g_a is not None:
-                torch._foreach_add_(g_a_acc, [g.float() for g in g_a])
+                torch._foreach_add_(g_a_acc, [g.to(acc_dtype) for g in g_a])
             del g_x, g_a
             for k, v in stats.items():
                 stats_mb.setdefault(k, []).append(v)
+        del grad_of, call
         # Mean over microbatches (Accelerate divides by accumulation steps).
         torch._foreach_div_(g_x_acc, A)
 
@@ -325,14 +394,16 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
 
 def _surgery(cfg: DeletionStepConfig, g_x: List[torch.Tensor], g_a: List[torch.Tensor],
              metrics: Dict[str, torch.Tensor]):
-    """clip(g_x − s·g_a), written into the g_x buffers; logs ‖g_x‖, ‖g_a‖
-    and s. Returns (final gradient, its pre-clip norm)."""
+    """clip(g_x − s·g_a), in fp32: written into the g_x buffers when they
+    are fp32, else into new fp32 ones, a leaf at a time (the JAX step
+    combines bf16 accumulators in fp32 too); logs ‖g_x‖, ‖g_a‖ and s.
+    Returns (final gradient, its pre-clip norm)."""
     norm_x = global_norm(g_x)
     norm_a = global_norm(g_a)
     if cfg.loss_fn == "erasediff":
         # EraseDiff's projected-gradient step.
-        norm_a_sq = (torch.stack(torch._foreach_norm(g_a)) ** 2).sum() if cfg.fused_surgery \
-            else norm_a ** 2
+        norm_a_sq = ((torch.stack(torch._foreach_norm(g_a, 2, dtype=torch.float32)) ** 2).sum()
+                     if cfg.fused_surgery else norm_a ** 2)
         scaling = -torch.clamp(cfg.eta - tree_dot(g_x, g_a) / norm_a_sq, min=0.0)
     else:
         scaling = cfg.scaling_norm / norm_a
@@ -341,8 +412,13 @@ def _surgery(cfg: DeletionStepConfig, g_x: List[torch.Tensor], g_a: List[torch.T
     # Exact combine-then-norm (the closed form ‖x‖² − 2s⟨x,a⟩ + s²‖a‖²
     # loses precision to cancellation when the surgery nearly zeroes the
     # gradient).
-    torch._foreach_mul_(g_a, scaling)
-    torch._foreach_sub_(g_x, g_a)
+    if g_x[0].dtype == torch.float32:
+        torch._foreach_mul_(g_a, scaling)
+        torch._foreach_sub_(g_x, g_a)
+    else:
+        for i in range(len(g_x)):
+            g_x[i] = g_x[i].float() - scaling * g_a[i].float()
+            g_a[i] = None
     pre_clip_norm = global_norm(g_x)
     torch._foreach_mul_(g_x, torch.clamp(cfg.max_grad_norm / (pre_clip_norm + 1e-6), max=1.0))
     metrics["gradient/norm_loss_x"] = norm_x

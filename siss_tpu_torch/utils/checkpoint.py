@@ -34,6 +34,20 @@ def to_host(obj: Any) -> Any:
     return obj
 
 
+#: The state-dict file names a diffusers or transformers model folder holds.
+WEIGHT_FILES = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
+                "diffusion_pytorch_model.safetensors", "model.safetensors")
+
+
+def weights_file(directory: str) -> Optional[str]:
+    """The first of ``WEIGHT_FILES`` in ``directory``, or None."""
+    for name in WEIGHT_FILES:
+        path = os.path.join(directory, name)
+        if os.path.isfile(path):
+            return path
+    return None
+
+
 def read_state_dict(path: str) -> dict:
     """A state dict saved with ``torch.save`` (``.bin``, ``.pt``, ``.pth``),
     loaded with ``weights_only=True``, or a ``.safetensors`` file when the

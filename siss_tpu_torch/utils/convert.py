@@ -13,7 +13,9 @@ text tower. Block paths expand (``down_blocks_0_resnets_1`` →
 ``ff/out_proj`` become ``ff.net.0.proj`` and ``ff.net.2``, attention output
 projections become ``to_out.0``, and flax leaf names map to torch's. The
 CLIP text tower's keys take transformers' ``text_model.`` prefixes
-(``clip_text_key``). Kernels transpose from flax to torch layout: HWIO →
+(``clip_text_key``), the vision tower's its ``vision_model.`` ones, the
+class embedding and the top-level ``visual_projection`` (``clip_vision_key``).
+Kernels transpose from flax to torch layout: HWIO →
 OIHW for convs, IO → OI for linears; embeddings keep their layout.
 """
 
@@ -99,6 +101,27 @@ def clip_text_key(names: Sequence[str]) -> str:
     return ".".join([_CLIP_TEXT_PREFIX[parts[0]]] + parts + [_SUFFIX[names[-1]]])
 
 
+# CLIP vision: the flax module's top-level names → transformers' prefixes
+# (``visual_projection`` has none).
+_CLIP_VISION_PREFIX = {"patch_embedding": "vision_model.embeddings",
+                       "position_embedding": "vision_model.embeddings",
+                       "layers": "vision_model.encoder", "pre_layrnorm": "vision_model",
+                       "post_layernorm": "vision_model"}
+
+
+def clip_vision_key(names: Sequence[str]) -> str:
+    """transformers' ``CLIPVisionModelWithProjection`` key of the flax CLIP
+    vision param at path ``names``."""
+    names = [str(n) for n in names]
+    if names == ["class_embedding"]:
+        return "vision_model.embeddings.class_embedding"
+    parts = []
+    for p in _expand_block_names(names[:-1]):
+        parts += _CLIP_MLP.get(p, [p])
+    prefix = _CLIP_VISION_PREFIX.get(parts[0])
+    return ".".join(([prefix] if prefix else []) + parts + [_SUFFIX[names[-1]]])
+
+
 def _leaves(tree: Mapping[str, Any], prefix=()):
     for name, sub in tree.items():
         path = prefix + (str(name),)
@@ -111,8 +134,8 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
 def params_from_flax(flax_params: Mapping[str, Any],
                      key_fn: Callable[[Sequence[str]], str] = torch_key) -> Dict[str, torch.Tensor]:
     """Flax param tree (numpy leaves) → torch state dict, keys by ``key_fn``:
-    ``torch_key`` (diffusers names: the UNets and the VAE) or
-    ``clip_text_key``."""
+    ``torch_key`` (diffusers names: the UNets and the VAE), ``clip_text_key``
+    or ``clip_vision_key``."""
     sd: Dict[str, torch.Tensor] = {}
     for names, leaf in _leaves(flax_params):
         key = key_fn(names)

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,10 @@ def test_imports_no_jax():
             "siss_tpu_torch.tasks.delete_celeb", "siss_tpu_torch.metrics.fid",
             "siss_tpu_torch.metrics.inception_v3", "siss_tpu_torch.models.vae",
             "siss_tpu_torch.models.clip_text", "siss_tpu_torch.models.clip_bpe",
-            "siss_tpu_torch.data.latent_cache", "siss_tpu_torch.tasks.delete_sd"} <= set(mods)
+            "siss_tpu_torch.data.latent_cache", "siss_tpu_torch.tasks.delete_sd",
+            "siss_tpu_torch.models.clip_vision", "siss_tpu_torch.metrics.kmeans_mem",
+            "siss_tpu_torch.metrics.sscd", "siss_tpu_torch.metrics.clip_iqa",
+            "siss_tpu_torch.ops.batched"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -50,7 +54,7 @@ def test_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond", "vae",
-                                   "clip_text"])
+                                   "clip_text", "clip_vision", "kmeans", "clip_iqa"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -70,6 +74,18 @@ def test_entry_points_default_to_cuda(entry):
             build_vae(AutoencoderKLConfig.tiny())
         elif entry == "clip_text":
             build_clip_text(CLIPTextConfig.tiny())
+        elif entry == "clip_vision":
+            from siss_tpu_torch.models import CLIPVisionConfig, build_clip_vision
+
+            build_clip_vision(CLIPVisionConfig.tiny())
+        elif entry == "kmeans":
+            from siss_tpu_torch.metrics.kmeans_mem import KMeansMemClassifier
+
+            KMeansMemClassifier(np.zeros((2, 12), np.float32))
+        elif entry == "clip_iqa":
+            from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
+
+            CLIPIQA(lambda imgs: imgs, np.ones(4, np.float32), -np.ones(4, np.float32))
         else:
             build_unet(UNet2DConfig(block_out_channels=(16, 32), norm_num_groups=8,
                                     down_block_types=("DownBlock2D", "DownBlock2D"),

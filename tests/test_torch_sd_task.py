@@ -8,13 +8,18 @@ and the noise-norm line series (one curve more at each validation), takes
 ``frac_deletion`` from ``clustering_info.json``, falls back to zero
 conditioning without prompts, gives the same losses with the latent cache
 on and off (rtol 1e-4, as ``tests/test_latent_cache.py``), resumes exactly
-(2 + 1 steps against 3, bit for bit), raises without a card unless the CPU
-is asked for, and raises with their ROADMAP items for the SD metrics not
-ported yet and for an Adafactor ``optimizer:`` override.
+(2 + 1 steps against 3, bit for bit) and raises without a card unless the
+CPU is asked for. With the SD metrics on (synthetic k-means centers, a
+TorchScript embedder and a tiny CLIP vision folder) and the single-card
+memory mode, it logs the JAX task's metric keys (read from
+``siss_tpu/tasks/delete_sd.py``: a tiny JAX SD task takes minutes on a
+CPU) with each metric's seconds; the Adafactor override, each step knob
+and each remat policy run.
 """
 
 import json
 import os
+import re
 
 import jax
 import numpy as np
@@ -209,6 +214,114 @@ def test_without_a_card_the_run_raises(sd_root, tmp_path):
     ("metrics.clip_iqa=true", "11c"),
     ("optimizer={_target_: adafactor}", "6b"),
 ])
-def test_unported_options_raise(sd_root, tmp_path, override, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        run_sd(sd_root, tmp_path / "x", "training_steps=1", override)
+def test_unported_options_raise(sd_root, tmp_path, monkeypatch, capsys, override, item):
+    """The options of ROADMAP items 11c and 6b, which raised until they were
+    ported, behave as in the JAX task: a missing SSCD model or CLIP folder
+    disables its metric with a message, a missing k-means artifact raises,
+    the Adafactor override trains."""
+    monkeypatch.setenv("SISS_CLIP_DIR", str(tmp_path / "no_clip"))
+    if "fraction_deletion" in override:
+        with pytest.raises(FileNotFoundError):
+            run_sd(sd_root, tmp_path / "x", "training_steps=1", override)
+        return
+    task = run_sd(sd_root, tmp_path / "x", "training_steps=1", override)
+    out = capsys.readouterr().out
+    assert ("metric disabled" in out) == override.startswith("metrics."), item
+    assert [r["_step"] for r in rows_of(task) if "loss_x/mean" in r] == [4]
+    assert not any(k.startswith("metrics/") for r in rows_of(task) for k in r)
+
+
+def jax_validation_keys(prompts):
+    """The JAX task's validation metric keys, from its source's f-strings."""
+    with open("siss_tpu/tasks/delete_sd.py") as f:
+        templates = set(re.findall(r'logs\[f"(metrics/[a-z_]+)_\{pi\}"\]', f.read()))
+    return {f"{t}_{pi}" for t in templates for pi in range(prompts)}
+
+
+class _Embedder(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 4, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(x).mean(dim=(2, 3))
+
+
+@pytest.fixture(scope="module")
+def metric_files(tmp_path_factory):
+    """k-means centers (the memorised image and its negative), a TorchScript
+    SSCD stand-in, and a CLIP folder holding a tiny vision tower with its
+    config.json and the anchors."""
+    from siss_tpu_torch.models.clip_vision import CLIPVisionConfig, build_clip_vision
+
+    root = tmp_path_factory.mktemp("sd_metric_files")
+    rng = np.random.default_rng(3)
+    np.savez(root / "km.npz", centers=(rng.random((2, RES * RES * 3)) * 255).astype(np.float32))
+    torch.manual_seed(0)
+    torch.jit.save(torch.jit.script(_Embedder().eval()), str(root / "sscd.pt"))
+    vision_cfg = dict(image_size=224, patch_size=32, hidden_size=32, num_hidden_layers=2,
+                      num_attention_heads=4, intermediate_size=64, projection_dim=16)
+    tower = build_clip_vision(CLIPVisionConfig.from_transformers(vision_cfg), device="cpu")
+    (root / "clip" / "vision").mkdir(parents=True)
+    torch.save(tower.state_dict(), root / "clip" / "vision" / "pytorch_model.bin")
+    (root / "clip" / "vision" / "config.json").write_text(json.dumps(vision_cfg))
+    np.savez(root / "clip" / "iqa_anchors.npz", good=rng.normal(size=16), bad=rng.normal(size=16))
+    return root
+
+
+MEMORY_MODE = ("adam_mu_dtype=bfloat16", "adam_nu_dtype=bfloat16",
+               "deletion.grad_accum_dtype=bfloat16", "+deletion.param_cast_dtype=bfloat16")
+
+
+def test_sd_metrics_and_memory_mode_log_the_jax_keys(sd_root, tmp_path, metric_files,
+                                                     monkeypatch):
+    monkeypatch.setenv("SISS_CLIP_DIR", str(metric_files / "clip"))
+    task = run_sd(sd_root, tmp_path / "m", "training_steps=2", *MEMORY_MODE,
+                  f"metrics.fraction_deletion={{classifier_path: {metric_files / 'km.npz'}}}",
+                  f"metrics.sscd={{model_path: {metric_files / 'sscd.pt'}}}",
+                  "metrics.clip_iqa=true")
+    validations = [r for r in rows_of(task) if "noise_norms/text_step0" in r]
+    assert [r["_step"] for r in validations] == [4, 8]
+    want = jax_validation_keys(2)
+    assert want == {f"metrics/{k}_{pi}" for k in ("deletion_fraction", "sscd", "sscd_max",
+                                                 "clip_iqa") for pi in (0, 1)}
+    for r in validations:
+        assert {k for k in r if k.startswith("metrics/")} == want
+        assert all(np.isfinite(r[k]) for k in want)
+        assert r["metrics/deletion_fraction_0"] in (0.0, 1.0)   # one sample a prompt
+        assert r["metrics/sscd_max_0"] >= r["metrics/sscd_0"]
+        assert 0.0 <= r["metrics/clip_iqa_0"] <= 1.0
+    assert [set(rec) for rec in task.eval_records] == 2 * [
+        {"step", "sampling", "decode", "norms", "deletion_fraction", "sscd", "clip_iqa"}]
+    assert "metrics" in task.setup_seconds
+    state = torch.load(os.path.join(str(task.cfg.output_dir), "checkpoint-2", "state", "item.pt"),
+                       weights_only=True)
+    moments = next(iter(state["optimizer"]["state"].values()))
+    assert moments["mu"].dtype == moments["nu"].dtype == torch.bfloat16
+    summary = os.path.join(str(task.cfg.output_dir), "summary.json")
+    fracs = [r["metrics/deletion_fraction_0"] for r in validations]
+    if 0.0 in fracs:   # deletion_steps_0 in optimizer steps, the first time it is 0
+        with open(summary) as f:
+            assert json.load(f)["deletion_steps_0"] == 1 + fracs.index(0.0)
+
+
+@pytest.mark.parametrize("override", [
+    ("optimizer={_target_: adafactor, weight_decay: 1.0e-2}",
+     "deletion.grad_accum_dtype=bfloat16"),
+    ("+deletion.param_cast_dtype=bfloat16",),
+    ("deletion.batched_dual_backward=true",),
+    ("noise_offset=0.1",),
+    ("input_perturbation=0.1",),
+    ("gradient_checkpointing=true", "+remat_policy=dots"),
+    ("gradient_checkpointing=true", "+remat_policy=dots_no_batch"),
+], ids=["adafactor", "param_cast", "batched_dual_backward", "noise_offset",
+        "input_perturbation", "remat_dots", "remat_dots_no_batch"])
+def test_each_sd_option_runs(sd_root, tmp_path, override):
+    task = run_sd(sd_root, tmp_path / "o", "training_steps=1", "eval_batches=0", *override)
+    (row,) = [r for r in rows_of(task) if "loss_x/mean" in r]
+    assert np.isfinite(row["loss_x/mean"]) and row["gradient/scaling_factor"] > 0
+    if override[0].startswith("optimizer="):
+        state = torch.load(os.path.join(str(task.cfg.output_dir), "checkpoint-1", "state",
+                                        "item.pt"), weights_only=True)
+        (group,) = state["optimizer"]["param_groups"]
+        assert group["weight_decay"] == 1e-2 and group["decay_rate"] == 0.8

@@ -205,9 +205,9 @@ def test_config_guards_match_jax(loss_fn, exc):
         DeletionStepConfig(loss_fn=loss_fn)
 
 
-# The SD options of ROADMAP item 6b. The other loss_fns, fused_siss=False
-# and fused_surgery=False are ported: tests/test_torch_objectives.py holds
-# them to the JAX step.
+# The SD options of ROADMAP item 6b, which raised until they were ported:
+# each now takes a step (tests/test_torch_sd_options.py holds them to the
+# JAX step).
 @pytest.mark.parametrize("kwargs", [
     dict(noise_offset=0.1),
     dict(input_perturbation=0.1),
@@ -216,9 +216,14 @@ def test_config_guards_match_jax(loss_fn, exc):
     dict(param_cast_dtype="bfloat16"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_branches_raise(kwargs):
-    cfg = DeletionStepConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
-        build_deletion_train_step(linear_apply, NoiseSchedule.create(100, device="cpu"), cfg)
+    step = build_deletion_train_step(linear_apply, NoiseSchedule.create(1000, device="cpu"),
+                                     DeletionStepConfig(**STEP_KW, **kwargs))
+    model = Linear()
+    opt, sched = build_optimizer({"_target_": "sgd", "lr": 1.0}, model.parameters())
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(1).items()}
+    _, m = step(TrainState.create(model, opt, sched), batch, torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert float(model.w.detach()) != 0.5 and model.w.dtype == torch.float32
 
 
 def test_dynamic_lambd_raises():
@@ -277,7 +282,13 @@ def test_ema_decay_matches_jax():
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError):
-        build_optimizer({"_target_": "adafactor", "lr": 1e-3}, [torch.nn.Parameter(torch.ones(1))])
-    with pytest.raises(NotImplementedError):
-        build_optimizer({"lr": 1e-3, "mu_dtype": "bfloat16"}, [torch.nn.Parameter(torch.ones(1))])
+    """Adafactor and bf16 Adam moments, which raised until they were ported,
+    now build (tests/test_torch_sd_options.py holds them to optax)."""
+    from siss_tpu_torch.train.optim import Adafactor, Adam
+
+    opt, _ = build_optimizer({"_target_": "adafactor", "lr": 1e-3},
+                             [torch.nn.Parameter(torch.ones(1))])
+    assert isinstance(opt, Adafactor)
+    opt, _ = build_optimizer({"lr": 1e-3, "mu_dtype": "bfloat16"},
+                             [torch.nn.Parameter(torch.ones(1))])
+    assert isinstance(opt, Adam) and opt.mu_dtype == torch.bfloat16 and opt.nu_dtype is None

@@ -154,12 +154,17 @@ def test_bf16_autocast_output_is_fp32():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(gradient_checkpointing=True, remat_policy="dots"), NotImplementedError, "Queue 1 item 11"),
-    (dict(gradient_checkpointing=True, remat_policy="dots_no_batch"), NotImplementedError,
-     "remat_policy"),
+    (dict(gradient_checkpointing=True, remat_policy="dots"), None, None),
+    (dict(gradient_checkpointing=True, remat_policy="dots_no_batch"), None, None),
     (dict(gradient_checkpointing=True, remat_policy="typo"), ValueError, "unknown remat_policy"),
     (dict(ff_impl="typo"), ValueError, "Unknown ff impl"),
 ])
 def test_unported_and_unknown_knobs_raise(kw, exc, match):
+    """Unknown knobs raise; the remat policies, which raised until they were
+    ported, build (tests/test_torch_sd_options.py checks them)."""
+    cfg = dataclasses.replace(UNet2DConditionConfig.tiny(), **kw)
+    if exc is None:
+        assert UNet2DCondition(cfg).config.remat_policy == kw["remat_policy"]
+        return
     with pytest.raises(exc, match=match):
-        UNet2DCondition(dataclasses.replace(UNet2DConditionConfig.tiny(), **kw))
+        UNet2DCondition(cfg)
