@@ -22,8 +22,9 @@ prints no result):
 3. Hold each kernel against its plain PyTorch version on the card: the
    main-path shape [16, 256, 256, 3] fp32 with the main path's data
    (t = 999 noising and the keep/forget mixture), the same in bf16, the
-   shipped celeb task's microbatch [4, 256, 256, 3] with the same data in
-   fp32 and bf16, the SD
+   shipped celeb task's microbatch [4, 256, 256, 3] and each rank's
+   microbatch of phase 9, [8, 256, 256, 3], with the same data in fp32 and
+   bf16, the SD
    step's shape [1, 64, 64, 4] fp32 with the SD schedule's t = 999 (one
    row split into 8 chunks), the t-shirt step's [64, 28, 28, 1] fp32 with
    t ~ U{0..999}, and ragged shapes (28×28×1, and 15×15×3, whose row
@@ -107,7 +108,7 @@ prints no result):
 8. The SD main path at full width (``profile_step.make_sd_path``, the
    ``configs/delete_sd.yaml`` step of ``bench.py --workload sd`` with
    ``attention_impl="flash"``): the sd_v1 UNet, microbatch 1 × 16
-   accumulation steps; 1 warm-up and 2 timed steps. Each step must launch
+   accumulation steps; 1 warm-up and 1 timed step. Each step must launch
    flash_fwd 160, flash_bwd_dkv 320, flash_bwd_dq 320, siss_reduce 16 and
    siss_bwd 32 times.
 8b. The SD task through ``siss_tpu_torch.main`` at full width
@@ -152,6 +153,26 @@ prints no result):
    its bound. The tiny SD step of phase 5 also runs card against CPU
    with ``noise_offset`` and ``input_perturbation``, launching no SISS
    kernel.
+9. Data parallelism (``siss_tpu_torch.parallel``) on phase 7's celeb step
+   at full width, 16 × 4, 2 steps from one global batch and its draws:
+   (a) one process without a group, in bf16 and in fp32 (TF32 off), θ
+   after each step and the norms ``gradient/norm_loss_x``,
+   ``gradient/norm_loss_a``, ``gradient/pre_clip_norm`` kept on the host;
+   (b) the bf16 steps under an NCCL group of world size 1, which must give
+   (a)'s bf16 parameters and norms bit for bit; (c) after printing the
+   card's compute mode (an exclusive mode fails the phase), two ranks
+   sharing the card over gloo, each on its 8 rows of every microbatch:
+   their parameters equal bit for bit after each step, 4 reduce and 8 SISS
+   backward launches a step on each, and against (a)'s fp32 steps the
+   largest and RMS errors of Δθ and the norms' largest and RMS relative
+   errors at most twice (a)'s bf16 ones; each rank's step and all-reduce
+   seconds and peak memory printed; (d) ``python3 -m torch.distributed.run
+   --standalone --nproc_per_node 2 -m siss_tpu_torch.main
+   --config-name=delete_tshirt --device cuda:0 --dist-backend gloo`` from
+   phase 6's pretrain at full width, 3 steps at batch 64: one run
+   directory, one tracker log with steps 1–3, one checkpoint. cuDNN is set
+   deterministic for the phase. NCCL across several cards is not run: the
+   machine has one.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
@@ -190,6 +211,8 @@ SISS_SD_SHAPE = (1, 64, 64, 4)
 SISS_TSHIRT_SHAPE = (64, 28, 28, 1)
 # The shipped celeb task's microbatch (configs/delete_celeb.yaml: bs 4 × 16).
 SISS_CELEB_TASK_SHAPE = (4, 256, 256, 3)
+# Each rank's microbatch of the celeb main path on two ranks (phase 9).
+SISS_DP_SHAPE = (8, 256, 256, 3)
 # (B, H, N, d): the SD UNet's flash sites (64×64 and 32×32 latents), then
 # a small head dim, the largest one, and one padded to a built head dim.
 FLASH_SD_SHAPES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
@@ -375,6 +398,10 @@ def phase_kernels(torch):
     check_kernels(torch, f"celeb task fp32 {list(SISS_CELEB_TASK_SHAPE)}", *task, 1e-5, 1e-3)
     task_bf = main_path_inputs(torch, celeb, SISS_CELEB_TASK_SHAPE, torch.bfloat16, seed=4)
     check_kernels(torch, f"celeb task bf16 {list(SISS_CELEB_TASK_SHAPE)}", *task_bf, 1e-2, 1e-2)
+    dp = main_path_inputs(torch, celeb, SISS_DP_SHAPE, torch.float32, seed=5)
+    check_kernels(torch, f"celeb per rank fp32 {list(SISS_DP_SHAPE)}", *dp, 1e-5, 1e-3)
+    dp_bf = main_path_inputs(torch, celeb, SISS_DP_SHAPE, torch.bfloat16, seed=5)
+    check_kernels(torch, f"celeb per rank bf16 {list(SISS_DP_SHAPE)}", *dp_bf, 1e-2, 1e-2)
     # The SD step's operands: fp32 (the UNet's output type), SD schedule.
     sd = main_path_inputs(torch, sd_noise_schedule(device="cuda"), SISS_SD_SHAPE, torch.float32,
                           seed=2)
@@ -395,6 +422,7 @@ def phase_kernels(torch):
     # shapes' times are printed, beside the launch floor.
     record = siss_times(torch, big, gamma, sigma)
     siss_times(torch, *task)
+    siss_times(torch, *dp)
     siss_times(torch, *sd)
     siss_times(torch, *tshirt)
     floors = {n: statistics.median(launch_floor_ms(torch, n)) for n in (1, 2)}
@@ -1096,7 +1124,8 @@ def phase_sd_path(torch):
     # 64×64 latents, 5 at 32×32), each differentiated by both pulls.
     per_step = {"flash_fwd": 10 * SD_ACCUM, "flash_bwd_dkv": 20 * SD_ACCUM,
                 "flash_bwd_dq": 20 * SD_ACCUM, "siss_reduce": SD_ACCUM, "siss_bwd": 2 * SD_ACCUM}
-    return drive_path(torch, f"sd_v1 flash bs {SD_MB} x accum {SD_ACCUM}", make_sd_path, 3,
+    # 1 warm-up and 1 timed step (2 timed until the script passed 700 s).
+    return drive_path(torch, f"sd_v1 flash bs {SD_MB} x accum {SD_ACCUM}", make_sd_path, 2,
                       per_step, SD_MB * SD_ACCUM)
 
 
@@ -1984,6 +2013,253 @@ def phase_classifier(torch, card, base):
               + json.dumps({k: round(r[k], 6) for k in keys}))
 
 
+# Phase 9: data parallelism on the celeb main path (phase 7's step).
+DP_WORK = ROOT / "build" / "chip_smoke_dp"
+DP_STEPS, DP_RANKS = 2, 2
+DP_NORMS = ("gradient/norm_loss_x", "gradient/norm_loss_a", "gradient/pre_clip_norm")
+# The CLI drive: the t-shirt unlearning task on two ranks from phase 6's
+# pretrain, 3 steps with an evaluation of 64 images at steps 0 and 3 and no
+# likelihood.
+DP_CLI = ("training_steps=3", "sampling_steps=3", "eval_images=64", "metrics.likelihood=null")
+
+
+def dp_inputs(torch, device):
+    """The phase's global batch and each step's global draws, from one seed
+    on the card: every process makes the same ones."""
+    from siss_tpu_torch.profile_step import MAIN_ACCUM, MAIN_MB
+    from siss_tpu_torch.train.step import draw_microbatch_randomness
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    batch = {k: torch.randn(MAIN_ACCUM, MAIN_MB, 256, 256, 3, generator=gen, device=device)
+             for k in ("all", "deletion")}
+    draws = [draw_microbatch_randomness(gen, MAIN_ACCUM, MAIN_MB, (256, 256, 3), 999, 1000, device)
+             for _ in range(DP_STEPS)]
+    return batch, draws
+
+
+def dp_steps(torch, dtype, device):
+    """DP_STEPS celeb steps (``make_main_path`` at ``dtype``) on this rank's
+    rows of the global batch: θ0 and θ after each step (flat fp32 on the
+    host), the three norms, the synchronised step seconds, the launches and
+    the peak memory."""
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.parallel import rank_rows
+    from siss_tpu_torch.profile_step import make_main_path
+
+    state, step, _, _ = make_main_path(device, dtype=dtype)
+    batch, draws = dp_inputs(torch, device)
+    batch = {k: rank_rows(v, 1).contiguous() for k, v in batch.items()}
+    params = list(state.model.parameters())
+
+    def flat():
+        return torch.cat([p.detach().reshape(-1).float() for p in params]).cpu()
+
+    out = {"theta0": flat(), "theta": [], "norms": [], "seconds": []}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for d in draws:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws=d)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["norms"].append({k: float(m[k]) for k in DP_NORMS})
+        out["theta"].append(flat())
+    out["launches"] = dict(launch_counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def dp_rank(rank, port, queue):
+    """One of phase 9(c)'s ranks: gloo on cuda:0, its 8 rows of each
+    microbatch; rank 0 writes θ after each step under DP_WORK. Puts its
+    norms, seconds, all-reduce seconds, launches, peak memory and whether
+    its θ equals rank 0's bit for bit after each step."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, str(ROOT))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        from siss_tpu_torch.parallel import destroy_distributed, initialize_distributed
+        from siss_tpu_torch.train import step as step_module
+
+        dev = initialize_distributed("cuda:0", "gloo", rank=rank, world_size=DP_RANKS,
+                                     init_method=f"tcp://localhost:{port}", timeout_s=600)
+        reduce_s, all_reduce = [], step_module.all_reduce_
+
+        def timed_all_reduce(tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(tensors)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+
+        step_module.all_reduce_ = timed_all_reduce
+        out = dp_steps(torch, torch.bfloat16, dev)
+        equal = []
+        for theta in out["theta"]:
+            ref = theta.clone()
+            dist.broadcast(ref, 0)
+            equal.append(torch.equal(ref, theta))
+        if rank == 0:
+            torch.save(out["theta"], DP_WORK / "rank0_theta.pt")
+        destroy_distributed()
+        queue.put({"rank": rank, "equal": equal, "norms": out["norms"],
+                   "seconds": out["seconds"], "reduce_s": reduce_s,
+                   "launches": out["launches"], "peak_gib": out["peak_gib"]})
+    except Exception:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def phase_data_parallel(torch, card, base):
+    """9: the celeb main path at full width under data parallelism (see the
+    module docstring), then the t-shirt task on two ranks through the
+    command line."""
+    import gc
+    import multiprocessing as mp
+    import shutil
+    import socket
+
+    from siss_tpu_torch.parallel import destroy_distributed, initialize_distributed
+
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    DP_WORK.mkdir(parents=True)
+    torch.backends.cudnn.deterministic = True
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    # (a) one process, no group: bf16 autocast and fp32 (TF32 off).
+    ref = {name: dp_steps(torch, dtype, "cuda") for name, dtype in
+           (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+    # (b) NCCL at world size 1, through the same code path.
+    initialize_distributed("cuda:0", "nccl", rank=0, world_size=1,
+                           init_method=f"tcp://localhost:{free_port()}")
+    try:
+        nccl = dp_steps(torch, torch.bfloat16, "cuda:0")
+    finally:
+        destroy_distributed()
+    for k in range(DP_STEPS):
+        if not torch.equal(nccl["theta"][k], ref["bf16"]["theta"][k]):
+            raise AssertionError(f"data parallel (b): NCCL at world size 1 gave other "
+                                 f"parameters than one process after step {k + 1}")
+        if nccl["norms"][k] != ref["bf16"]["norms"][k]:
+            raise AssertionError(f"data parallel (b): norms {nccl['norms'][k]} != "
+                                 f"{ref['bf16']['norms'][k]}")
+    print(f"data parallel (b) ({card}): NCCL world size 1 bit-identical to one process over "
+          f"{DP_STEPS} steps; step s {[round(t, 4) for t in nccl['seconds']]} against "
+          f"{[round(t, 4) for t in ref['bf16']['seconds']]}")
+    del nccl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) two ranks sharing the card over gloo.
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"data parallel (c): compute mode {mode}")
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"compute mode {mode}: two processes cannot share the card, so "
+                             "phase 9(c) cannot run")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=dp_rank, args=(r, port, queue)) for r in range(DP_RANKS)]
+    for proc in procs:
+        proc.start()
+    try:
+        ranks = sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"data parallel (c) rank {r['rank']} failed:\n{r['error']}")
+    per_step = {"siss_reduce": 4, "siss_bwd": 8}
+    for r in ranks:
+        if not all(r["equal"]):
+            raise AssertionError(f"data parallel (c): rank {r['rank']}'s parameters differ from "
+                                 f"rank 0's after the steps {r['equal']}")
+        want = {k: DP_STEPS * per_step.get(k, 0) for k in r["launches"]}
+        if r["launches"] != want:
+            raise AssertionError(f"data parallel (c) rank {r['rank']}: launches {r['launches']}, "
+                                 f"expected {want}")
+        if r["norms"] != ranks[0]["norms"]:
+            raise AssertionError("data parallel (c): the ranks' norms differ")
+    two = {"theta": torch.load(DP_WORK / "rank0_theta.pt"), "norms": ranks[0]["norms"]}
+    fp32 = ref["fp32"]
+
+    def errors(run):
+        dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
+        n = sum(d.numel() for d in dtheta)
+        rel = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["norms"], fp32["norms"])
+               for k in DP_NORMS]
+        return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
+                "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
+                "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
+
+    e_one, e_two = errors(ref["bf16"]), errors(two)
+    ratios = {k: e_two[k] / e_one[k] for k in e_one}
+    print(f"data parallel (c) ({card}): errors against one process's fp32 step, one process "
+          f"bf16 {json.dumps(e_one)}, two ranks {json.dumps(e_two)}, ratio {json.dumps(ratios)}")
+    bad = {k: v for k, v in ratios.items() if not v <= 2.0}
+    if bad:
+        raise AssertionError(f"data parallel (c): two ranks' errors above twice one process's "
+                             f"bf16 errors: {bad}")
+    for r in ranks:
+        print(f"data parallel (c) ({card}) rank {r['rank']}: step s "
+              f"{[round(t, 4) for t in r['seconds']]} (one process bf16 "
+              f"{[round(t, 4) for t in ref['bf16']['seconds']]}), all-reduce s "
+              f"{[round(t, 4) for t in r['reduce_s']]} (g_x, g_a a step), peak memory "
+              f"{r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}), "
+              f"launches {r['launches']}")
+    del ref, two
+    gc.collect()
+
+    # (d) the command line on two ranks sharing the card.
+    out_dir = DP_WORK / "cli"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_RANKS), "-m", "siss_tpu_torch.main", "--config-name=delete_tshirt",
+           "--device", "cuda:0", "--dist-backend", "gloo", f"checkpoint_path={base}/latest",
+           f"output_dir={out_dir}", f"dataset.path={TSHIRT_DATA}",
+           f"dataset_all.path={TSHIRT_DATA}", f"dataset_deletion.path={TSHIRT_DATA}",
+           "train_batch_size=64", *DP_CLI]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"data parallel (d): the two-rank command line failed "
+                             f"({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    runs = [p for p in out_dir.iterdir() if p.is_dir()]
+    logs = list(out_dir.rglob("metrics.jsonl"))
+    if len(runs) != 1 or len(logs) != 1:
+        raise AssertionError(f"data parallel (d): {len(runs)} run directories and {len(logs)} "
+                             "tracker logs, expected one of each")
+    cps = sorted(p.name for p in runs[0].iterdir() if p.name.startswith("checkpoint-"))
+    with open(logs[0]) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r["_step"] for r in rows if "loss_x/mean" in r]
+    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
+           if isinstance(v, (int, float)) and not math.isfinite(v)}
+    if cps != ["checkpoint-3"] or steps != [1, 2, 3] or bad:
+        raise AssertionError(f"data parallel (d): checkpoints {cps}, logged steps {steps}, "
+                             f"non-finite {bad}")
+    ranks_seen = sorted(set(re.findall(r"rank=(\d)/2", proc.stdout)))
+    print(f"data parallel (d) ({card}): delete_tshirt on 2 gloo ranks sharing cuda:0 "
+          f"(ranks {ranks_seen}), {seconds:.1f} s with start-up; one run directory "
+          f"{runs[0].name}, one log, {cps}; img/s "
+          f"{[round(r['images_per_sec'], 2) for r in rows if 'loss_x/mean' in r]}")
+    torch.backends.cudnn.deterministic = False
+
+
 def main() -> int:
     if not (ROOT / "siss_tpu_torch").is_dir():
         print(f"chip_smoke.py must run from a checkout of the repository: no siss_tpu_torch/ "
@@ -2024,6 +2300,7 @@ def main() -> int:
     phase_sd_task(torch, card)
     phase_sd_knobs(torch, card)
     phase_sd_fast_path(torch, card)
+    phase_data_parallel(torch, card, base)
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed

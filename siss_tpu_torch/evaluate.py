@@ -7,8 +7,14 @@
 
 Outputs are numpy NHWC float arrays in [0, 1], as in the JAX package. With
 ``set_generator=True`` the draws come from a generator seeded with
-``random_seed``, so panels are reproducible from call to call. The JAX
-package's mesh sharding of the sampling batch is not ported (one device).
+``random_seed``, so panels are reproducible from call to call.
+
+Under a process group the batch is split over the ranks when they divide
+it, as the JAX package shards it over the mesh's data axis (``_shardable``):
+every rank draws the global batch's noise, keeps its rows, runs the model on
+them, and gets the whole batch back (``gather_rows``), so the samples are
+the one-process samples. A batch the ranks do not divide is computed whole
+by every rank. The seed of an unseeded call is rank 0's.
 """
 
 from __future__ import annotations
@@ -25,6 +31,19 @@ from siss_tpu_torch.diffusion.sampling import (
     sample_dpm_solver_2m,
 )
 from siss_tpu_torch.diffusion.schedule import NoiseSchedule
+from siss_tpu_torch.parallel import broadcast_object, gather_rows, rank_rows, world_size
+
+
+class _RowNoise:
+    """A sampler's ``step_noise`` on one rank: step i's draw is the global
+    batch's, of which the rank keeps its rows. Drawn on demand, in step
+    order, as the one-process sampler draws its noise."""
+
+    def __init__(self, generator: torch.Generator, shape: tuple, device):
+        self.generator, self.shape, self.device = generator, shape, device
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return rank_rows(torch.randn(self.shape, generator=self.generator, device=self.device))
 
 
 class Evaluator:
@@ -48,8 +67,14 @@ class Evaluator:
         self.injection_steps = injection_steps
 
     def _generator(self, set_generator: bool) -> torch.Generator:
-        seed = self.random_seed if set_generator else int(np.random.randint(2 ** 31))
+        seed = (self.random_seed if set_generator
+                else broadcast_object(int(np.random.randint(2 ** 31))))
         return torch.Generator(device=self.schedule.gamma.device).manual_seed(seed)
+
+    @staticmethod
+    def _split(batch_size: int) -> bool:
+        """Whether the ranks split a batch of ``batch_size``."""
+        return world_size() > 1 and batch_size % world_size() == 0
 
     def _eps_fn(self, model):
         return lambda x, t, cond: self.eps_apply(model, x, t, cond)
@@ -60,10 +85,23 @@ class Evaluator:
 
     def sample_images(self, model, num_samples: int, set_generator: bool = False) -> np.ndarray:
         """Samples as numpy NHWC float in [0, 1]."""
-        sampler = sample_dpm_solver_2m if self.solver == "dpm" else sample_ddpm
-        imgs = sampler(self._eps_fn(model), self.schedule, (num_samples, *self.sample_shape),
-                       self.num_inference_steps, generator=self._generator(set_generator))
-        return self._to_unit(imgs)
+        shape = (num_samples, *self.sample_shape)
+        gen = self._generator(set_generator)
+        if not self._split(num_samples):
+            sampler = sample_dpm_solver_2m if self.solver == "dpm" else sample_ddpm
+            imgs = sampler(self._eps_fn(model), self.schedule, shape, self.num_inference_steps,
+                           generator=gen)
+            return self._to_unit(imgs)
+        device = self.schedule.gamma.device
+        x_init = rank_rows(torch.randn(shape, generator=gen, device=device))
+        if self.solver == "dpm":
+            imgs = sample_dpm_solver_2m(self._eps_fn(model), self.schedule, x_init.shape,
+                                        self.num_inference_steps, x_init=x_init)
+        else:
+            imgs = sample_ddpm(self._eps_fn(model), self.schedule, x_init.shape,
+                               self.num_inference_steps, x_init=x_init,
+                               step_noise=_RowNoise(gen, shape, device))
+        return self._to_unit(gather_rows(imgs))
 
     def denoise_images(self, model, noisy_image_batch, timestep: int,
                        set_generator: bool = True) -> np.ndarray:
@@ -71,13 +109,19 @@ class Evaluator:
         ``timestep`` to 0; numpy NHWC in [0, 1]."""
         device = self.schedule.gamma.device
         x_t = torch.as_tensor(noisy_image_batch, device=device)
+        split = self._split(x_t.shape[0])
         if self.solver == "dpm":
-            out = denoise_from_t_dpm(self._eps_fn(model), self.schedule, x_t, int(timestep),
+            out = denoise_from_t_dpm(self._eps_fn(model), self.schedule,
+                                     rank_rows(x_t) if split else x_t, int(timestep),
                                      num_inference_steps=self.injection_steps)
+        elif split:
+            out = denoise_from_t(self._eps_fn(model), self.schedule, rank_rows(x_t), int(timestep),
+                                 step_noise=_RowNoise(self._generator(set_generator),
+                                                      tuple(x_t.shape), device))
         else:
             out = denoise_from_t(self._eps_fn(model), self.schedule, x_t, int(timestep),
                                  generator=self._generator(set_generator))
-        return self._to_unit(out)
+        return self._to_unit(gather_rows(out) if split else out)
 
     @staticmethod
     def make_grid_from_images(images: np.ndarray, padding: int = 2) -> np.ndarray:

@@ -10,6 +10,17 @@ Tasks run on ``--device`` (default ``cuda``; without a card that raises
 unless ``--device cpu`` is given). ``output_dir`` gets a timestamp and a
 random suffix unless the run resumes, and then it is the checkpoint's
 directory.
+
+Data parallelism: launched by ``torch.distributed.run`` with several ranks,
+
+    python3 -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m siss_tpu_torch.main --config-name=delete_tshirt [--device cpu] ...
+
+each rank joins one process group (``--dist-backend``: ``nccl`` on CUDA
+and ``gloo`` on the CPU by default; ranks that share one card need
+``gloo``), runs on ``cuda:LOCAL_RANK`` (or the ``--device cuda:N`` named)
+and takes its share of every batch. Every rank uses rank 0's
+``output_dir``.
 """
 
 from __future__ import annotations
@@ -21,7 +32,8 @@ import os
 import uuid
 
 from siss_tpu_torch.config import get_object, load_config
-from siss_tpu_torch.device import resolve_device
+from siss_tpu_torch.parallel import (broadcast_object, destroy_distributed, is_initialized,
+                                     maybe_initialize_distributed, rank, world_size)
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs")
 
@@ -44,10 +56,13 @@ def _run_one(config_name, overrides, config_dir, device):
         cfg.output_dir = os.path.join(str(cfg.output_dir), f"{stamp}_{uuid.uuid4().hex[:8]}")
     else:
         cfg.output_dir = os.path.dirname(str(cfg.resume_from_checkpoint))
+    # Each rank drew its own stamp and suffix: all take rank 0's.
+    cfg.output_dir = broadcast_object(str(cfg.output_dir))
 
     task_cls = get_object(str(cfg.task._target_))
     task = task_cls(cfg, device=device)
-    print(f"[siss_tpu_torch] task={task_cls.__name__} device={task.device} "
+    ranks = f" rank={rank()}/{world_size()}" if is_initialized() else ""
+    print(f"[siss_tpu_torch] task={task_cls.__name__} device={task.device}{ranks} "
           f"output_dir={cfg.output_dir}")
     task.run()
     return task
@@ -65,15 +80,25 @@ def main(argv=None):
     parser.add_argument("--multirun", "-m", action="store_true",
                         help="sweep: comma-separated override values expand to a cartesian "
                              "product of runs")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="torch.distributed backend under torch.distributed.run with "
+                             "several ranks (default nccl on cuda, gloo on cpu; ranks sharing "
+                             "one card need gloo)")
     args = parser.parse_intermixed_args(argv)  # options may follow the overrides
-    device = resolve_device(args.device)
+    started = not is_initialized()
+    device = maybe_initialize_distributed(args.device, args.dist_backend)
+    started = started and is_initialized()
 
     runs = list(_expand_multirun(args.overrides)) if args.multirun else [args.overrides]
     tasks = []
-    for i, ovs in enumerate(runs):
-        if args.multirun:
-            print(f"[siss_tpu_torch] multirun job {i}: {ovs}")
-        tasks.append(_run_one(args.config_name, ovs, args.config_dir, device))
+    try:
+        for i, ovs in enumerate(runs):
+            if args.multirun:
+                print(f"[siss_tpu_torch] multirun job {i}: {ovs}")
+            tasks.append(_run_one(args.config_name, ovs, args.config_dir, device))
+    finally:
+        if started:
+            destroy_distributed()
     return tasks
 
 

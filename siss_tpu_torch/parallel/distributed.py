@@ -1,0 +1,115 @@
+"""Process groups for data parallelism: counterpart of
+``siss_tpu/parallel/distributed.py``.
+
+The reference launches with ``accelerate launch`` over NCCL process groups
+with a 7200 s timeout (``delete_celeb.py:99-101``). The port is launched by
+``python3 -m torch.distributed.run --nproc_per_node N -m siss_tpu_torch.main
+...``, which sets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
+and ``MASTER_PORT``; ``maybe_initialize_distributed`` reads them. One rank
+drives one device. Every helper here is correct without a process group
+(one process: rank 0 of 1).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from siss_tpu_torch.device import resolve_device
+
+#: Seconds a collective waits for the other ranks before it fails: a rank
+#: that dies then fails the others instead of hanging them. Rank 0 writing a
+#: checkpoint while the others wait at the barrier is the longest wait.
+DEFAULT_TIMEOUT_S = 1800
+
+
+def _rank_device(device) -> torch.device:
+    """``device`` with ``cuda`` read as ``cuda:LOCAL_RANK``, made current."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def initialize_distributed(device, backend: Optional[str] = None, rank: Optional[int] = None,
+                           world_size: Optional[int] = None, init_method: str = "env://",
+                           timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Initialise the default process group and return this rank's device.
+
+    ``device`` ``"cuda"`` means ``cuda:LOCAL_RANK``; ``"cuda:N"`` is taken as
+    named (several ranks may name one card, which only gloo allows). The
+    backend is ``nccl`` for CUDA and ``gloo`` for the CPU unless named; a
+    backend that fails raises, it is never swapped for another. ``rank`` and
+    ``world_size`` default to ``RANK`` and ``WORLD_SIZE``."""
+    dev = _rank_device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    rank = int(os.environ["RANK"]) if rank is None else rank
+    world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            device_id=dev if backend == "nccl" else None)
+    return dev
+
+
+def maybe_initialize_distributed(device="cuda", backend: Optional[str] = None,
+                                 timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """``initialize_distributed`` when ``WORLD_SIZE`` > 1 (a launch by
+    ``torch.distributed.run`` with several ranks) and no group exists yet,
+    else just the device. Returns this rank's device."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return resolve_device(device)
+    if is_initialized():
+        return _rank_device(device)
+    return initialize_distributed(device, backend, timeout_s=timeout_s)
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def barrier() -> None:
+    if not is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def collective_device(device: torch.device) -> torch.device:
+    """Where a small host-side value goes for a collective: the card under
+    NCCL (which takes only CUDA tensors), else the CPU."""
+    return device if is_initialized() and dist.get_backend() == "nccl" else torch.device("cpu")
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Rank 0's ``obj`` on every rank (pickled); ``obj`` itself without a
+    group."""
+    if not is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def destroy_distributed() -> None:
+    if is_initialized():
+        dist.destroy_process_group()

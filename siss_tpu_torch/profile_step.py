@@ -48,14 +48,15 @@ _FAMILIES = (
 )
 
 
-def make_main_path(device="cuda"):
-    """(state, step, batch, generator) of the flagship step on ``device``."""
+def make_main_path(device="cuda", dtype=torch.bfloat16):
+    """(state, step, batch, generator) of the flagship step on ``device``;
+    ``dtype`` is the UNet's compute type (bf16 autocast over fp32 params)."""
     from siss_tpu_torch.diffusion import NoiseSchedule
     from siss_tpu_torch.models import UNet2DConfig, build_unet
     from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                       build_optimizer, unet_eps_apply)
 
-    model = build_unet(UNet2DConfig.celebahq_256(), seed=0, dtype=torch.bfloat16, device=device)
+    model = build_unet(UNet2DConfig.celebahq_256(), seed=0, dtype=dtype, device=device)
     opt, sched = build_optimizer({"_target_": "torch.optim.AdamW", "lr": 5e-6,
                                   "betas": [0.95, 0.999], "weight_decay": 1e-6}, model.parameters())
     state = TrainState.create(model, opt, sched, use_ema=True)

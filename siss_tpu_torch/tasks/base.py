@@ -1,8 +1,12 @@
 """Task base class and shared wiring: port of ``siss_tpu/tasks/base.py``.
 
-A task runs on one device, the ``device`` it is given (``"cuda"`` unless the
-caller asks for the CPU). The JAX package's device mesh is one device here:
-a config asking for more raises. Precision: ``compute_dtype: float32`` runs
+A task runs on the ``device`` it is given (``"cuda"`` unless the caller asks
+for the CPU): under a process group, its rank's device. The config's
+``mesh`` resolves over the ranks (``data: -1`` is all of them); an ``fsdp``
+or ``tensor`` axis above 1 raises, as those axes are not ported. Under
+several ranks the batch is split over them, the tracker writes on rank 0
+only, rank 0 writes the checkpoints, and the preemption stop is agreed by
+all ranks before any saves. Precision: ``compute_dtype: float32`` runs
 the model in full float32, so both TF32 switches are set off
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``); ``bfloat16`` autocasts the model's
@@ -25,6 +29,7 @@ from siss_tpu_torch.data import make_synthetic_mnist_tshirt
 from siss_tpu_torch.device import resolve_device
 from siss_tpu_torch.diffusion import NoiseSchedule
 from siss_tpu_torch.models import UNet2D, UNet2DConfig, build_unet
+from siss_tpu_torch.parallel import MeshConfig, any_rank, is_main, resolve_mesh, world_size
 from siss_tpu_torch.train.state import TrainState
 from siss_tpu_torch.utils import CheckpointManager, Tracker
 
@@ -46,7 +51,7 @@ class Task(abc.ABC):
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._check_mesh()
+        resolve_mesh(MeshConfig.from_cfg(cfg.get("mesh")), world_size())  # raises for 12b, 12c
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self._ema_model = None
@@ -59,14 +64,11 @@ class Task(abc.ABC):
     def run(self) -> None:
         ...
 
-    def _check_mesh(self) -> None:
-        mcfg = self.cfg.get("mesh") or {}
-        sizes = {axis: int(mcfg.get(axis, default)) for axis, default in
-                 (("data", -1), ("fsdp", 1), ("tensor", 1))}
-        if sizes["data"] not in (-1, 1) or sizes["fsdp"] > 1 or sizes["tensor"] > 1:
-            raise NotImplementedError(
-                f"mesh {sizes}: the port runs on one device; data, fsdp and tensor "
-                "parallelism are not ported yet (ROADMAP Queue 1 item 12)")
+    def should_stop(self, guard) -> bool:
+        """The preemption guard's stop, agreed by every rank (one MAX
+        all-reduce): a signal to one rank stops all of them at the same
+        step, so they save together."""
+        return any_rank(guard.should_stop, self.device)
 
     def synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -84,7 +86,8 @@ class Task(abc.ABC):
     def make_tracker(self) -> Tracker:
         logging_cfg = self.cfg.get("logging") or Config({"logger": "jsonl"})
         return Tracker(project_name=str(self.cfg.project_name), output_dir=str(self.cfg.output_dir),
-                       logger=str(logging_cfg.get("logger", "jsonl")), config=to_dict(self.cfg))
+                       logger=str(logging_cfg.get("logger", "jsonl")), config=to_dict(self.cfg),
+                       main_process=is_main())
 
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[str(self.cfg.get("compute_dtype", "float32"))]

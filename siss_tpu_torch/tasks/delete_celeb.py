@@ -25,7 +25,10 @@ without InceptionV3 weights).
 once per microbatch; the value a step starts from is logged.
 ``steps_per_call = K`` runs K steps between the evaluation and checkpoint
 gates (boundary crossings, as in the JAX package); with a superfactor it
-falls back to 1.
+falls back to 1. ``train_batch_size`` is the global microbatch: under
+several ranks each loads its stripe of the keep stream; the forget stream is
+not striped (``siss_tpu/tasks/delete_celeb.py:106-112``), so every rank draws
+the same forget rows.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from siss_tpu_torch.diffusion.sde import VPSDE
 from siss_tpu_torch.evaluate import Evaluator
 from siss_tpu_torch.metrics import Classifier, LikelihoodEvaluator, MembershipLoss
 from siss_tpu_torch.metrics.inception_v3 import build_fid_evaluator
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, unet_eps_apply)
@@ -116,10 +120,12 @@ class DeleteCeleb(Task):
         step_fn = build_deletion_train_step(unet_eps_apply, schedule, step_cfg)
         state = TrainState.create(model, opt, lr_schedule, use_ema=step_cfg.use_ema)
 
-        keep_loader = BatchLoader(dataset_all, InfiniteSampler(len(dataset_all), seed=seed), bs)
+        bs_local = process_batch_slice(bs)
+        keep_loader = BatchLoader(dataset_all, make_rank_sampler(InfiniteSampler, len(dataset_all),
+                                                                 seed=seed), bs_local)
         forget_loader = BatchLoader(dataset_deletion,
                                     RepeatedSampler(len(dataset_deletion),
-                                                    training_steps * accum * bs), bs)
+                                                    training_steps * accum * bs_local), bs_local)
 
         evaluator = Evaluator(unet_eps_apply, schedule,
                               (ucfg.sample_size, ucfg.sample_size, ucfg.in_channels),
@@ -269,8 +275,10 @@ class DeleteCeleb(Task):
         guard = PreemptionGuard().install()
         global_step = start_step
         t_last = time.time()
+        stop = False
         while global_step < training_steps:
-            if guard.should_stop:
+            stop = self.should_stop(guard)
+            if stop:
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
                 print(f"[preemption] saved checkpoint-{global_step}; exiting")
                 break
@@ -290,7 +298,7 @@ class DeleteCeleb(Task):
             if boundary_crossed(prev_step, global_step, cfg.get("checkpointing_steps")):
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
 
-        if not guard.should_stop:
+        if not stop:
             ckpt.save_bundle(training_steps, self.bundle(state, gen))
         ckpt.wait()
         tracker.finish()

@@ -32,6 +32,14 @@ max: ``metrics/sscd_{i}``, ``metrics/sscd_max_{i}``) and
 themselves with a message when their weights are missing. Progress is
 counted in images: the tracker's step is the image count. The superfactor
 decays once per optimizer step.
+
+``train_batch_size`` is the global microbatch, which the ranks must divide
+(the shipped 1 × 16 runs on one rank, 2 × 8 on two). Under several ranks
+each loads its stripe of the keep stream; the forget stream is not striped
+(``siss_tpu/tasks/delete_sd.py:333-340``). The latent draws (flip mask,
+moment samples) are the global batch's, each rank keeping its rows. The
+latent cache and the validations run whole on every rank, as the JAX task
+runs them; rank 0 logs them.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from siss_tpu_torch.diffusion.sd_pipeline import StableDiffusionPipeline, sd_noi
 from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
 from siss_tpu_torch.metrics.kmeans_mem import KMeansMemClassifier
 from siss_tpu_torch.metrics.sscd import SSCDEvaluator
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, rank_rows
 from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig, UNet2DConditionConfig,
                                    build_clip_text, build_unet_cond, build_vae,
                                    load_clip_tokenizer)
@@ -161,6 +170,7 @@ class DeleteSD(Task):
 
         training_steps = int(cfg.training_steps)
         bs = int(cfg.train_batch_size)
+        bs_local = process_batch_slice(bs)
         accum = int(cfg.gradient_accumulation_steps)
         opt, lr_schedule = build_optimizer(self._optimizer_cfg(), unet.parameters(),
                                            str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
@@ -203,28 +213,39 @@ class DeleteSD(Task):
                   f"({'both orientations' if random_flip else 'one orientation'}); "
                   "per-step VAE encode elided")
 
+        latent_hw = res // vae_cfg.scale_factor
+
+        def normal_rows(mb):
+            """This rank's rows of one microbatch's normal latent draw."""
+            return rank_rows(torch.randn((mb, latent_hw, latent_hw, vae_cfg.latent_channels),
+                                         generator=gen, device=self.device))
+
         def latents_of(streams):
-            """The step's [A, mb, h, w, C] latents of both streams."""
+            """The step's [A, mb, h, w, C] latents of both streams: the
+            global batch's draws, of which this rank keeps its rows."""
             A, mb = streams["all"].shape[:2]
-            flip = (torch.rand((A, mb), generator=gen, device=self.device) < 0.5
+            flip = (rank_rows(torch.rand((A, bs), generator=gen, device=self.device), 1) < 0.5
                     if random_flip else None)
             out = {}
             for k in ("all", "deletion"):
                 x = streams[k]
                 if use_cache:
-                    out[k] = sample_from_moments(x, flip, sf, generator=gen)
+                    noise = torch.stack([normal_rows(bs) for _ in range(A)])
+                    out[k] = sample_from_moments(x, flip, sf, noise=noise)
                     continue
                 if flip is not None:
                     x = torch.where(flip[:, :, None, None, None], x.flip(3), x)
                 with torch.no_grad():
-                    out[k] = torch.stack([vae.encode_sample(x[a], generator=gen)
+                    out[k] = torch.stack([vae.encode_sample(x[a], noise=normal_rows(bs))
                                           for a in range(A)])
             out["conditioning"] = train_cond.expand(A, mb, *train_cond.shape[-2:])
             return out
 
-        keep_loader = BatchLoader(keep_src, InfiniteSampler(len(keep_imgs), seed=seed), bs)
+        keep_loader = BatchLoader(keep_src, make_rank_sampler(InfiniteSampler, len(keep_imgs),
+                                                              seed=seed), bs_local)
         forget_loader = BatchLoader(mem_src, RepeatedSampler(len(mem_imgs),
-                                                             training_steps * accum * bs), bs)
+                                                             training_steps * accum * bs_local),
+                                    bs_local)
 
         t0 = time.perf_counter()
         scorers = self._sd_metrics(metrics_cfg)
@@ -320,8 +341,10 @@ class DeleteSD(Task):
         guard = PreemptionGuard().install()
         images_per_step = bs * accum
         t_last = time.time()
+        stop = False
         while global_step < training_steps:
-            if guard.should_stop:
+            stop = self.should_stop(guard)
+            if stop:
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
                 print(f"[preemption] saved checkpoint-{global_step}; exiting")
                 break
@@ -341,7 +364,7 @@ class DeleteSD(Task):
             if boundary_crossed(prev_step, global_step, cfg.get("checkpointing_steps")):
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
 
-        if not guard.should_stop:
+        if not stop:
             ckpt.save_bundle(training_steps, self.bundle(state, gen))
         ckpt.wait()
         tracker.finish()

@@ -18,6 +18,8 @@ once per microbatch (an [A] scalar per step), from where a resumed run left
 it, and is logged after each step. ``steps_per_call = K`` runs K steps
 between the evaluation and checkpoint gates, which fire on boundary
 crossings as in the JAX package; with a superfactor it falls back to 1.
+``train_batch_size`` is the global microbatch: under several ranks each
+loads its stripe of both index streams, as the JAX task does.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from siss_tpu_torch.diffusion.sde import VPSDE
 from siss_tpu_torch.evaluate import Evaluator
 from siss_tpu_torch.metrics import (InceptionScore, LikelihoodEvaluator, MembershipLoss,
                                     TShirtClassifier)
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, unet_eps_apply)
@@ -88,9 +91,13 @@ class DeleteTShirt(Task):
         accum = step_cfg.grad_accum_steps
         bs = int(cfg.train_batch_size)
         seed = int(cfg.random_seed)
-        keep_loader = BatchLoader(dataset_all, InfiniteSampler(len(dataset_all), seed=seed), bs)
+        # Per-rank stripes of both streams (siss_tpu/tasks/delete_tshirt.py:91-98).
+        bs_local = process_batch_slice(bs)
+        keep_loader = BatchLoader(dataset_all, make_rank_sampler(InfiniteSampler, len(dataset_all),
+                                                                 seed=seed), bs_local)
         forget_loader = BatchLoader(dataset_deletion,
-                                    InfiniteSampler(len(dataset_deletion), seed=seed + 1), bs)
+                                    make_rank_sampler(InfiniteSampler, len(dataset_deletion),
+                                                      seed=seed + 1), bs_local)
 
         evaluator = Evaluator(unet_eps_apply, schedule,
                               (ucfg.sample_size, ucfg.sample_size, ucfg.in_channels),
@@ -217,8 +224,10 @@ class DeleteTShirt(Task):
         guard = PreemptionGuard().install()
         global_step = start_step
         t_last = time.time()
+        stop = False
         while global_step < training_steps:
-            if guard.should_stop:
+            stop = self.should_stop(guard)
+            if stop:
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
                 print(f"[preemption] saved checkpoint-{global_step}; exiting")
                 break
@@ -240,7 +249,7 @@ class DeleteTShirt(Task):
             if boundary_crossed(prev_step, global_step, cfg.get("checkpointing_steps")):
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
 
-        if not guard.should_stop:
+        if not stop:
             ckpt.save_bundle(training_steps, self.bundle(state, gen))
         ckpt.wait()
         tracker.finish()

@@ -4,6 +4,8 @@
 sample panels, checkpoint bundles with rotation, resume and preemption
 handling. ``steps_per_call = K > 1`` runs K steps between the loop's
 bookkeeping, as the JAX package's folded steps do, and logs their mean.
+``train_batch_size`` is the global batch: under several ranks each loads
+its stripe of the index stream (``make_rank_sampler``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from siss_tpu_torch.data import BatchLoader, InfiniteSampler
 from siss_tpu_torch.evaluate import Evaluator
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, rank_rows
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import TrainState, build_optimizer, build_pretrain_step, unet_eps_apply
 from siss_tpu_torch.utils import CheckpointManager, PreemptionGuard
@@ -44,7 +47,7 @@ class TrainUnconditional(Task):
 
         def one_step(batch):
             if random_flip:  # horizontal flip, the reference's torchvision transform
-                flip = torch.rand((batch.shape[0], 1, 1, 1), generator=gen, device=self.device) < 0.5
+                flip = rank_rows(torch.rand((bs, 1, 1, 1), generator=gen, device=self.device)) < 0.5
                 batch = torch.where(flip, batch.flip(2), batch)
             return step_fn(state, batch, gen)[1]
 
@@ -62,14 +65,17 @@ class TrainUnconditional(Task):
                               num_inference_steps=int(cfg.pipeline.num_inference_steps),
                               random_seed=int(cfg.random_seed),
                               solver=str(cfg.pipeline.get("solver", "ddpm")))
-        loader = BatchLoader(dataset, InfiniteSampler(len(dataset), seed=int(cfg.random_seed)), bs,
-                             skip_batches=global_step)
+        loader = BatchLoader(dataset, make_rank_sampler(InfiniteSampler, len(dataset),
+                                                        seed=int(cfg.random_seed)),
+                             process_batch_slice(bs), skip_batches=global_step)
         it = iter(loader)
         guard = PreemptionGuard().install()
         t_last = time.time()
         last_logged_step = global_step
+        stop = False
         while global_step < total_steps:
-            if guard.should_stop:
+            stop = self.should_stop(guard)
+            if stop:
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
                 print(f"[preemption] saved checkpoint-{global_step}; exiting")
                 break
@@ -97,7 +103,7 @@ class TrainUnconditional(Task):
             if boundary_crossed(prev_step, global_step, cfg.get("checkpointing_steps")):
                 ckpt.save_bundle(global_step, self.bundle(state, gen))
 
-        if not guard.should_stop:
+        if not stop:
             ckpt.save_bundle(global_step, self.bundle(state, gen))
         ckpt.wait()
         tracker.finish()

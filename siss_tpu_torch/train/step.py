@@ -38,6 +38,20 @@ Dynamic loss scalars (``superfactor``, or λ off the fused path) are plain
 numbers or 0-d tensors, or [A] tensors that give each microbatch its own
 value. Normalisation matches the reference: each microbatch loss is
 ``sum()/microbatch``, gradients are averaged over accumulation steps.
+
+Data parallelism (``siss_tpu_torch.parallel``; the JAX package's ``data``
+axis, docs/DESIGN.md §1): under a process group of R ranks each rank's
+batch is its block of the global batch (``rank_rows``), every rank draws
+the global batch's randomness from its generator and keeps its rows, the
+microbatch divisor is the global microbatch, and the accumulated g_x and
+g_a are all-reduced (SUM) once each before the norms, the surgery and the
+clip: the reference's surgery after the DDP all-reduce. The step's
+statistics are computed from every rank's per-sample values, so they are
+the one-process statistics of the global batch. The model is not wrapped in
+``DistributedDataParallel``: its reducer fires on ``.grad`` accumulation and
+expects one backward a forward, while the step pulls with
+``autograd.grad`` twice. The surgery, the optimizer and the EMA then run on
+the same values on every rank, and the ranks' parameters stay equal.
 """
 
 from __future__ import annotations
@@ -58,6 +72,7 @@ from siss_tpu_torch.losses.deletion import (
 )
 from siss_tpu_torch.ops.batched import contiguous_norm_inputs
 from siss_tpu_torch.ops.siss import siss_weighted_sums
+from siss_tpu_torch.parallel import all_reduce_, all_reduce_mean, gather_rows, rank_rows, world_size
 from siss_tpu_torch.train.ema import ema_update
 from siss_tpu_torch.train.state import TrainState
 
@@ -99,15 +114,21 @@ def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float):
     return [t * scale.to(t.dtype) for t in tensors], norm
 
 
-def _tensor_stats(x: torch.Tensor, prefix: str) -> Dict[str, torch.Tensor]:
-    """mean|max|min|std over per-sample values; std is the population std."""
-    x = x.detach()
-    per_sample = x.mean(dim=tuple(range(1, x.ndim))) if x.ndim > 1 else x
+def _per_sample(x: torch.Tensor) -> torch.Tensor:
+    """[mb] per-sample means of a [mb, ...] tensor (a [mb] one as it is), fp32."""
+    x = x.detach().float()
+    return x.mean(dim=tuple(range(1, x.ndim))) if x.ndim > 1 else x
+
+
+def _tensor_stats(v: torch.Tensor, prefix: str) -> Dict[str, torch.Tensor]:
+    """mean|max|min|std of [A, mb] per-sample values: each microbatch's
+    mean and population std, averaged over the microbatches; the extrema
+    over all of them."""
     return {
-        f"{prefix}/mean": x.mean(),
-        f"{prefix}/max": per_sample.max(),
-        f"{prefix}/min": per_sample.min(),
-        f"{prefix}/std": per_sample.std(correction=0),
+        f"{prefix}/mean": v.mean(dim=1).mean(),
+        f"{prefix}/max": v.max(),
+        f"{prefix}/min": v.min(),
+        f"{prefix}/std": v.std(dim=1, correction=0).mean(),
     }
 
 
@@ -229,6 +250,9 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
     ``dyn_scalars``: loss parameters decayed at run time, merged over
     ``cfg.loss_params``. The step updates ``state`` in place and returns it
     with a dict of 0-d metric tensors.
+
+    Under a process group ``batch`` is this rank's block of the global batch
+    ([A, mb/R, ...]) and ``draws`` are the global batch's ([A, mb, ...]).
     """
     loss_method = getattr(DeletionLoss(gamma=schedule.gamma, sigma=schedule.sigma), cfg.loss_fn)
     # Keep only the params the chosen loss accepts, so one config sweeps
@@ -238,6 +262,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
     draw_name = LOSS_DRAWS.get(cfg.loss_fn)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
     cast_dtype = getattr(torch, cfg.param_cast_dtype) if cfg.param_cast_dtype else None
+    n_ranks = world_size()
 
     def noises(dr):
         """(the loss's noise, the noise that forms x_t) of one microbatch."""
@@ -260,7 +285,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         return g_x, torch.autograd.grad(loss_a, params)
 
     def microbatch_terms(model, keep, forget, cond, dr, dyn):
-        """The loss method's outputs and stats for one microbatch."""
+        """The loss method's outputs and per-sample stats for one microbatch."""
         t = dr["t"]
         noise, input_noise = noises(dr)
         all_samples = {"og_latents": keep,
@@ -270,55 +295,50 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         params = {**static_params, **{k: v for k, v in dyn.items() if k in accepted}}
         out = loss_method(lambda x, tt, c: eps_apply(model, x, tt, c), dr.get(draw_name), t,
                           noise, cond, all_samples, deletion_samples, **params)
-        stats = {}
-        for name in ("loss", "loss_x", "loss_a", "importance_weight_x", "importance_weight_a"):
-            if getattr(out, name) is not None:
-                stats.update(_tensor_stats(getattr(out, name), name))
-        return out, stats
+        names = ("loss", "loss_x", "loss_a", "importance_weight_x", "importance_weight_a")
+        return out, {name: _per_sample(getattr(out, name)) for name in names
+                     if getattr(out, name) is not None}
 
+    # micro_grads(params, model, keep, forget, cond, dr, dyn, mb) -> (g_x,
+    # g_a or None, per-sample stats), ``mb`` the global microbatch.
     if cfg.is_scalar_path:
 
-        def micro_grads(params, model, keep, forget, cond, dr, dyn):
+        def micro_grads(params, model, keep, forget, cond, dr, dyn, mb):
             out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
-            return torch.autograd.grad(out.loss.sum() / keep.shape[0], params), None, stats
+            return torch.autograd.grad(out.loss.sum() / mb, params), None, stats
 
     elif cfg.is_fused_siss:
         lambd = float(static_params["lambd"])
 
-        def micro_grads(params, model, keep, forget, cond, dr, dyn):
+        def micro_grads(params, model, keep, forget, cond, dr, dyn, mb):
             if "lambd" in dyn:
                 raise ValueError("dynamic lambd is not supported by the fused SISS path; "
                                  "set fused_siss=False to decay lambd at runtime")
-            mb = keep.shape[0]
             noise, t = dr["noise"], dr["t"]
-            mask = (dr["u"] > lambd).reshape((mb,) + (1,) * (keep.ndim - 1))
+            mask = (dr["u"] > lambd).reshape((keep.shape[0],) + (1,) * (keep.ndim - 1))
             mix = torch.where(mask, q_sample(schedule, keep, noise, t),
                               q_sample(schedule, forget, noise, t))
             preds = eps_apply(model, mix, t, cond)
             wlx, wla, aux = siss_weighted_sums(preds, mix, keep, forget, schedule.gamma[t],
                                                schedule.sigma[t], lambd)
-            stats = {}
-            stats.update(_tensor_stats(aux["lx_mean"], "loss_x"))
-            stats.update(_tensor_stats(aux["la_mean"], "loss_a"))
-            stats.update(_tensor_stats(aux["iw_x"], "importance_weight_x"))
-            stats.update(_tensor_stats(aux["iw_a"], "importance_weight_a"))
+            stats = {"loss_x": _per_sample(aux["lx_mean"]), "loss_a": _per_sample(aux["la_mean"]),
+                     "importance_weight_x": _per_sample(aux["iw_x"]),
+                     "importance_weight_a": _per_sample(aux["iw_a"])}
             # ONE forward, TWO backward pulls over the shared graph.
             return (*two_pulls(wlx / mb, wla / mb, params), stats)
 
     elif cfg.is_shared_forward:
 
-        def micro_grads(params, model, keep, forget, cond, dr, dyn):
+        def micro_grads(params, model, keep, forget, cond, dr, dyn, mb):
             out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
-            mb = keep.shape[0]
             return (*two_pulls(out.weighted_loss_x.sum() / mb, out.weighted_loss_a.sum() / mb,
                                params), stats)
 
     else:  # double_forward_with_neg_del, erasediff
 
-        def micro_grads(params, model, keep, forget, cond, dr, dyn):
+        def micro_grads(params, model, keep, forget, cond, dr, dyn, mb):
             # Each term through only its own UNet forward (2 forwards + 2
             # backwards; the loss method would run both forwards per term).
-            mb = keep.shape[0]
             t = dr["t"]
             noise, input_noise = noises(dr)
             target_a = dr["uniform"] if cfg.loss_fn == "erasediff" else noise
@@ -327,7 +347,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             la = (eps_apply(model, q_sample(schedule, forget, input_noise, t), t, cond)
                   - target_a) ** 2
             g_a = torch.autograd.grad(la.sum() / mb, params)
-            return g_x, g_a, {**_tensor_stats(lx, "loss_x"), **_tensor_stats(la, "loss_a")}
+            return g_x, g_a, {"loss_x": _per_sample(lx), "loss_a": _per_sample(la)}
 
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
              dyn_scalars: Optional[Dict[str, Any]] = None,
@@ -336,6 +356,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         keep_all, forget_all = batch["all"], batch["deletion"]
         cond_all = batch.get("conditioning")
         A, mb = keep_all.shape[:2]
+        mb *= n_ranks  # the global microbatch
         if draws is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or explicit draws")
@@ -344,6 +365,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
                                                uniform_target=cfg.loss_fn == "erasediff",
                                                noise_offset=cfg.noise_offset > 0.0,
                                                input_perturbation=cfg.input_perturbation > 0.0)
+        draws = {k: rank_rows(v, axis=1) for k, v in draws.items()}
         # [A] scalars vary per microbatch (the task decays superfactor once
         # per microbatch); other scalars hold for every microbatch.
         per_mb = {k for k, v in dyn_scalars.items()
@@ -363,7 +385,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             dr = {k: v[a] for k, v in draws.items()}
             with contiguous_norm_inputs(model, cfg.batched_dual_backward):
                 g_x, g_a, stats = call(lambda m: micro_grads(grad_of, m, keep_all[a],
-                                                             forget_all[a], cond, dr, dyn))
+                                                             forget_all[a], cond, dr, dyn, mb))
             torch._foreach_add_(g_x_acc, [g.to(acc_dtype) for g in g_x])
             if g_a is not None:
                 torch._foreach_add_(g_a_acc, [g.to(acc_dtype) for g in g_a])
@@ -371,18 +393,22 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             for k, v in stats.items():
                 stats_mb.setdefault(k, []).append(v)
         del grad_of, call
-        # Mean over microbatches (Accelerate divides by accumulation steps).
+        # Sum over the ranks (one all-reduce of each tree), then the mean over
+        # microbatches (Accelerate divides by accumulation steps).
+        all_reduce_(g_x_acc)
         torch._foreach_div_(g_x_acc, A)
 
-        # Extrema keep their semantics across microbatches; means/stds average.
+        # Every rank's per-sample values ([stat, A, mb]), in one all-reduce.
+        names = list(stats_mb)
+        per_sample = gather_rows(torch.stack([torch.stack(stats_mb[k]) for k in names]), axis=2)
         metrics = {}
-        for k, vs in stats_mb.items():
-            v = torch.stack(vs)
-            metrics[k] = v.max() if k.endswith("/max") else v.min() if k.endswith("/min") else v.mean()
+        for k, v in zip(names, per_sample):
+            metrics.update(_tensor_stats(v, k))
 
         if cfg.is_scalar_path:
             final, pre_clip_norm = clip_by_global_norm(g_x_acc, cfg.max_grad_norm)
         else:
+            all_reduce_(g_a_acc)
             torch._foreach_div_(g_a_acc, A)
             final, pre_clip_norm = _surgery(cfg, g_x_acc, g_a_acc, metrics)
         metrics["gradient/pre_clip_norm"] = pre_clip_norm
@@ -456,28 +482,36 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
     metrics)``; ``batch`` is [B, H, W, C] clean images; ``draws`` an optional
     dict of "noise" [B, H, W, C] and "t" [B] used instead of drawing from
     ``generator`` (t ~ U{0..T−1}). Metrics: "loss" and
-    "gradient/pre_clip_norm"."""
+    "gradient/pre_clip_norm".
+
+    Under a process group of R ranks ``batch`` is this rank's block of the
+    global batch and ``draws`` are the global batch's, of which it keeps its
+    rows; each rank's mean loss counts 1/R and the gradients are
+    all-reduced (SUM) before the clip."""
     if prediction_type not in ("epsilon", "sample"):
         raise ValueError(prediction_type)
+    n_ranks = world_size()
 
     def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None):
         if draws is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or explicit draws")
-            draws = {"noise": torch.randn(batch.shape, generator=generator, dtype=batch.dtype,
-                                          device=batch.device),
-                     "t": torch.randint(0, schedule.num_train_timesteps, (batch.shape[0],),
+            B = batch.shape[0] * n_ranks
+            draws = {"noise": torch.randn((B,) + tuple(batch.shape[1:]), generator=generator,
+                                          dtype=batch.dtype, device=batch.device),
+                     "t": torch.randint(0, schedule.num_train_timesteps, (B,),
                                         generator=generator, device=batch.device)}
-        noise, t = draws["noise"], draws["t"]
+        noise, t = rank_rows(draws["noise"]), rank_rows(draws["t"])
         pred = eps_apply(state.model, q_sample(schedule, batch, noise, t), t, None)
         if prediction_type == "epsilon":
             loss = ((pred - noise) ** 2).mean()
         else:
             loss = (snr_weights(schedule, t, pred) * (pred - batch) ** 2).mean()
         params = list(state.model.parameters())
-        grads, grad_norm = clip_by_global_norm(torch.autograd.grad(loss, params), max_grad_norm)
+        grads = all_reduce_(list(torch.autograd.grad(loss / n_ranks, params)))
+        grads, grad_norm = clip_by_global_norm(grads, max_grad_norm)
         _apply_update(state, params, grads, ema_inv_gamma, ema_power, ema_max_decay)
-        return state, {"loss": loss.detach(), "gradient/pre_clip_norm": grad_norm}
+        return state, {"loss": all_reduce_mean(loss), "gradient/pre_clip_norm": grad_norm}
 
     return step

@@ -7,6 +7,9 @@ each named item of a bundle (``state``, ``unet``, ``unet_ema``), written to
 never leaves a bundle that ``latest()`` would pick. Each item is one
 ``torch.save`` file, ``<item>/item.pt``, of plain containers of CPU tensors
 (state dicts), and loads back with ``weights_only=True``.
+
+Under a process group every rank calls ``save_bundle`` and ``wait``; rank 0
+writes and the others wait for it at a barrier. Every rank restores.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import threading
 from typing import Any, Optional
 
 import torch
+
+from siss_tpu_torch.parallel.distributed import barrier, is_main
 
 ITEM_FILE = "item.pt"
 
@@ -99,6 +104,7 @@ class CheckpointManager:
     def wait(self) -> None:
         if self._queue is not None:
             self._queue.join()
+        barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -122,13 +128,16 @@ class CheckpointManager:
 
     def save_bundle(self, step: int, items: dict) -> str:
         """Save the named items (``None`` ones are skipped) under one
-        ``checkpoint-<step>/``."""
+        ``checkpoint-<step>/``: on rank 0, the others waiting at a barrier
+        until it has written (or, with ``async_save``, queued) them."""
         path = self._path(step)
-        items = {k: to_host(v) for k, v in items.items() if v is not None}
-        if self.async_save:
-            self._submit(lambda: self._write_bundle(path, items))
-        else:
-            self._write_bundle(path, items)
+        if is_main():
+            items = {k: to_host(v) for k, v in items.items() if v is not None}
+            if self.async_save:
+                self._submit(lambda: self._write_bundle(path, items))
+            else:
+                self._write_bundle(path, items)
+        barrier()
         return path
 
     def _write_bundle(self, path: str, items: dict) -> None:

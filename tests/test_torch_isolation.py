@@ -43,7 +43,9 @@ def test_imports_no_jax():
             "siss_tpu_torch.data.latent_cache", "siss_tpu_torch.tasks.delete_sd",
             "siss_tpu_torch.models.clip_vision", "siss_tpu_torch.metrics.kmeans_mem",
             "siss_tpu_torch.metrics.sscd", "siss_tpu_torch.metrics.clip_iqa",
-            "siss_tpu_torch.ops.batched"} <= set(mods)
+            "siss_tpu_torch.ops.batched", "siss_tpu_torch.parallel",
+            "siss_tpu_torch.parallel.distributed", "siss_tpu_torch.parallel.mesh",
+            "siss_tpu_torch.parallel.multihost"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -54,8 +56,9 @@ def test_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond", "vae",
-                                   "clip_text", "clip_vision", "kmeans", "clip_iqa"])
-def test_entry_points_default_to_cuda(entry):
+                                   "clip_text", "clip_vision", "kmeans", "clip_iqa",
+                                   "distributed"])
+def test_entry_points_default_to_cuda(entry, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from siss_tpu_torch.diffusion import NoiseSchedule, sd_noise_schedule
@@ -82,6 +85,15 @@ def test_entry_points_default_to_cuda(entry):
             from siss_tpu_torch.metrics.kmeans_mem import KMeansMemClassifier
 
             KMeansMemClassifier(np.zeros((2, 12), np.float32))
+        elif entry == "distributed":
+            # a two-rank launch without --device cpu: no group, no CPU fallback
+            from siss_tpu_torch.parallel import is_initialized, maybe_initialize_distributed
+
+            monkeypatch.setenv("WORLD_SIZE", "2")
+            try:
+                maybe_initialize_distributed()
+            finally:
+                assert not is_initialized()
         elif entry == "clip_iqa":
             from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
 
