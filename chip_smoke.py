@@ -65,12 +65,13 @@ prints no result):
    self-attention (256 tokens) runs the flash kernels.
 6. The t-shirt task through ``siss_tpu_torch.main`` at the full
    mnist_tshirt width (``configs/train_tshirt_mnist.yaml`` and
-   ``configs/delete_tshirt.yaml``): pretrain 10 epochs of the repository's
-   5,632 images at batch 128 (440 steps), check the checkpoint bundle, then
+   ``configs/delete_tshirt.yaml``): pretrain 4 epochs of the repository's
+   5,632 images at batch 128 (176 steps), check the checkpoint bundle, then
    30 SISS unlearning steps at batch 64 from its ``latest`` with 50-step
    DDPM evaluations of 128 images every 10 steps and the shipped metrics
-   block: the exact likelihood (RK45, every 30 steps) must log a finite,
-   positive ``metrics/likelihood`` at steps 0 and 30, each evaluation's
+   block, the likelihood's frequency cut from 30 steps to once: the exact
+   likelihood (RK45) must log a finite, positive ``metrics/likelihood`` at
+   step 0, each evaluation's
    seconds and NFE printed. The run must launch the reduce exactly 30 and
    the SISS backward 60 times and log finite values of the task's metric
    keys. Then the probe: ε-MSE at t = 300 on 256 forget and 256 keep
@@ -97,11 +98,11 @@ prints no result):
    (``configs/delete_celeb.yaml``: celebahq_256, bs 4 × 16 accumulation
    steps, bf16 autocast, t ≡ 999, evaluations every step: a 50-step DDPM
    sample and the denoising injections at t = 250) on a folder of 64
-   random 256² JPEGs, random weights, 3 steps, with FID (16 samples, the
-   random-projection embedder: ``metrics/fid_rand``) at steps 0 and 3 and
-   membership at t = 250 on every evaluation. It must launch the reduce 48
-   and the SISS backward 96 times and log finite step metrics, both panels
-   and the membership keys at steps 0–3. Then InceptionV3 (``fid``
+   random 256² JPEGs, random weights, 1 step, with FID (16 samples, the
+   random-projection embedder: ``metrics/fid_rand``) at steps 0 and 1 and
+   membership at t = 250 on every evaluation. It must launch the reduce 16
+   and the SISS backward 32 times and log finite step metrics, both panels
+   and the membership keys at steps 0–1. Then InceptionV3 (``fid``
    variant) on the card with the golden synthetic weights
    (``tests/goldens/inception_fid_golden.npz``, TF32 off) must give the
    recorded features within 1e-3, and is timed at batch 64 × 299².
@@ -116,14 +117,14 @@ prints no result):
    ViT-L/14 text tower, resolution 512, bs 1 × 16, bf16, the latent cache
    on ``auto``, ``random_flip``, a validation every step: CFG DDIM at
    guidance 7.5 with noise norms, its 50 steps cut to 25) with
-   ``attention_impl=flash``, 2 steps and ``eval_batches=1``, on 16 random 512² PNGs under
+   ``attention_impl=flash``, 1 step and ``eval_batches=1``, on 16 random 512² PNGs under
    ``build/chip_smoke_sd/`` with their side files, two prompt files and a
    synthetic byte-level CLIP vocabulary (random weights: the pretrained
    directory holds only ``tokenizer/``); then 1 step from a fresh output
    directory with ``cache_latents=false`` (the VAE encodes in the step).
    Each run must launch siss_reduce 16, siss_bwd 32, flash_bwd_dkv and
    flash_bwd_dq 320 times a step, and flash_fwd 160 a step plus 10 a CFG
-   UNet call; log finite step metrics at image counts 16 and 32, both
+   UNet call; log finite step metrics at image count 16, both
    prompts' panels and noise-norm line series at every validation (one
    curve more each time) and read ``frac_deletion`` = 1/16. It prints the
    set-up, step and validation seconds, peak memory and each run's
@@ -161,7 +162,8 @@ prints no result):
    (b) the bf16 steps under an NCCL group of world size 1, which must give
    (a)'s bf16 parameters and norms bit for bit; (c) after printing the
    card's compute mode (an exclusive mode fails the phase), two ranks
-   sharing the card over gloo, each on its 8 rows of every microbatch:
+   sharing the card over gloo for the first step, each on its 8 rows of
+   every microbatch:
    their parameters equal bit for bit after each step, 4 reduce and 8 SISS
    backward launches a step on each, and against (a)'s fp32 steps the
    largest and RMS errors of Δθ and the norms' largest and RMS relative
@@ -169,10 +171,22 @@ prints no result):
    seconds and peak memory printed; (d) ``python3 -m torch.distributed.run
    --standalone --nproc_per_node 2 -m siss_tpu_torch.main
    --config-name=delete_tshirt --device cuda:0 --dist-backend gloo`` from
-   phase 6's pretrain at full width, 3 steps at batch 64: one run
-   directory, one tracker log with steps 1–3, one checkpoint. cuDNN is set
-   deterministic for the phase. NCCL across several cards is not run: the
-   machine has one.
+   phase 6's pretrain at full width, 2 steps at batch 64 with an
+   evaluation of 64 images at step 0: one run directory, one tracker log
+   with steps 1–2, one checkpoint; (e) the
+   fsdp axis: (c) again on a ``data=1 × fsdp=2`` mesh over gloo, each
+   rank holding its block of every parameter that ``fsdp_dim`` splits, of
+   its AdamW moments, EMA and both accumulators: θ and the EMA gathered
+   after each step equal bit for bit on the two ranks, exact launches,
+   errors within (c)'s rule, each rank's held bytes exactly 9(c)'s less
+   half of the split parameters' (printed with the gathered working copy
+   apart), step, gather and reduce-scatter seconds and peak memory
+   printed; (f) (d) with ``mesh.fsdp=2``, run beside (d): each rank prints the mesh, one
+   run directory, log and checkpoint, the logged keys equal (d)'s, and one
+   process loads the bundle whole (the ``unet`` item strictly, the
+   ``state`` item into a TrainState). cuDNN is set deterministic for the
+   phase. NCCL across several cards is not run: the machine has one. Each
+   phase's seconds are printed after it.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
@@ -1130,12 +1144,12 @@ def phase_sd_path(torch):
 
 
 CELEB_WORK = ROOT / "build" / "chip_smoke_celeb"
-CELEB_IMAGES, CELEB_SIZE, CELEB_STEPS = 64, 256, 3
-# FID at steps 0 and 3 over 16 samples (the random-projection embedder: the
+CELEB_IMAGES, CELEB_SIZE, CELEB_STEPS = 64, 256, 1
+# FID at steps 0 and 1 over 16 samples (the random-projection embedder: the
 # repository holds no InceptionV3 weights), membership at t = 250 on every
 # evaluation; the shipped config leaves both off.
 CELEB_METRICS_ON = (
-    "metrics.fid={step_frequency: 3, num_imgs_to_generate: 16, batch_size: 8, "
+    f"metrics.fid={{step_frequency: {CELEB_STEPS}, num_imgs_to_generate: 16, batch_size: 8, "
     "class_cfg: {inception_batch_size: 16}}",
     "metrics.membership_loss={step_frequency: 1, timesteps: [250], class_cfg: "
     "{num_image_samples: 8, num_noise_samples: 4, eval_batch_size: 32}}",
@@ -1165,7 +1179,7 @@ def write_image_folder(root: Path, n: int, size: int) -> None:
 
 def phase_celeb_task(torch, card):
     """The shipped delete_celeb config through the port's command line at
-    full width for 3 steps, with FID and membership turned on."""
+    full width for CELEB_STEPS steps, with FID and membership turned on."""
     import shutil
 
     from siss_tpu_torch import main as cli
@@ -1277,7 +1291,7 @@ def inception_on_card(torch, card):
 SD_WORK = ROOT / "build" / "chip_smoke_sd"
 # The cached run takes 2 steps (3 until phase 8c took the script near
 # 700 s; PERF.md §4 names the cut).
-SD_IMAGES, SD_SIZE, SD_STEPS = 16, 512, 2
+SD_IMAGES, SD_SIZE, SD_STEPS = 16, 512, 1
 # The shipped validation sampler takes 50 steps; cut to 25 since the whole
 # script reached ~600 s (PERF.md §4 names the cut).
 SD_INFERENCE_STEPS = 25
@@ -1452,7 +1466,7 @@ def tower_times(torch, card):
 
 def phase_sd_task(torch, card):
     """The shipped delete_sd config through the port's command line at full
-    width: 2 steps with the latent cache, then 1 step from a fresh output
+    width: SD_STEPS steps with the latent cache, then 1 step from a fresh output
     directory encoding in the step (``cache_latents=false``)."""
     import shutil
 
@@ -1745,8 +1759,11 @@ def phase_sd_knobs(torch, card):
 
 TSHIRT_DATA = ROOT / "data" / "datasets" / "mnist_with_tshirt.npz"
 TSHIRT_WORK = ROOT / "build" / "chip_smoke_tshirt"
-# The pretrain: 10 epochs of the 5,632 images at batch 128 (440 steps).
-TSHIRT_PRETRAIN = ("num_epochs=10", "lr_warmup_steps=50", "sampling_steps=0")
+# The pretrain: 4 epochs of the 5,632 images at batch 128 (176 steps).
+TSHIRT_PRETRAIN = ("num_epochs=4", "lr_warmup_steps=50", "sampling_steps=0")
+# The shipped block evaluates the likelihood every 30 steps, at steps 0 and
+# 30 of this run; once (step 0) keeps the script under its time.
+TSHIRT_LIKELIHOOD_EVERY = 1000
 TSHIRT_STEPS = 30
 TSHIRT_KEYS = ("loss_x/mean", "importance_weight_x/mean", "gradient/scaling_factor",
                "metrics/deletion_class_fraction", "images_per_sec")
@@ -1830,7 +1847,8 @@ def phase_tshirt(torch, card):
     dele = delete_tshirt(cli, base, TSHIRT_WORK / "deletion", f"training_steps={TSHIRT_STEPS}",
                          "deletion.loss_fn=importance_sampling_with_mixture",
                          "deletion.scaling_norm=5", "sampling_steps=10", "eval_images=128",
-                         "pipeline.num_inference_steps=50")
+                         "pipeline.num_inference_steps=50",
+                         f"metrics.likelihood.step_frequency={TSHIRT_LIKELIHOOD_EVERY}")
     counts = dict(launch_counts)
     del_peak = torch.cuda.max_memory_allocated()
     expected = {k: 0 for k in counts} | {"siss_reduce": TSHIRT_STEPS, "siss_bwd": 2 * TSHIRT_STEPS}
@@ -1847,9 +1865,9 @@ def phase_tshirt(torch, card):
     fractions = [(r["_step"], r["metrics/deletion_class_fraction"]) for r in rows
                  if "metrics/deletion_class_fraction" in r]
     likelihood = [(r["_step"], r["metrics/likelihood"]) for r in rows if "metrics/likelihood" in r]
-    if [s for s, _ in likelihood] != [0, TSHIRT_STEPS] or not all(v > 0 for _, v in likelihood):
+    if [s for s, _ in likelihood] != [0] or not all(v > 0 for _, v in likelihood):
         raise AssertionError(f"t-shirt: metrics/likelihood by step {likelihood}, expected a "
-                             f"positive value at steps 0 and {TSHIRT_STEPS}")
+                             f"positive value at step 0")
 
     mgr = CheckpointManager(str(base))
     probe = tshirt_probe(torch, dele, {
@@ -2016,11 +2034,15 @@ def phase_classifier(torch, card, base):
 # Phase 9: data parallelism on the celeb main path (phase 7's step).
 DP_WORK = ROOT / "build" / "chip_smoke_dp"
 DP_STEPS, DP_RANKS = 2, 2
+DP_DATA_STEPS = 1   # 9(c)'s steps: one keeps the script within its time
 DP_NORMS = ("gradient/norm_loss_x", "gradient/norm_loss_a", "gradient/pre_clip_norm")
-# The CLI drive: the t-shirt unlearning task on two ranks from phase 6's
-# pretrain, 3 steps with an evaluation of 64 images at steps 0 and 3 and no
-# likelihood.
-DP_CLI = ("training_steps=3", "sampling_steps=3", "eval_images=64", "metrics.likelihood=null")
+# The CLI drives: the t-shirt unlearning task on two ranks from phase 6's
+# pretrain, 2 steps with an evaluation of 64 images at step 0 and no
+# likelihood; (d) on the data axis and (f) with mesh.fsdp=2, side by side.
+DP_CLI_STEPS = 2
+DP_CLI = (f"training_steps={DP_CLI_STEPS}", "sampling_steps=1000", "eval_images=64",
+          "metrics.likelihood=null")
+HELD = ("params", "optimizer", "ema", "accumulators")
 
 
 def dp_inputs(torch, device):
@@ -2037,44 +2059,60 @@ def dp_inputs(torch, device):
     return batch, draws
 
 
-def dp_steps(torch, dtype, device):
-    """DP_STEPS celeb steps (``make_main_path`` at ``dtype``) on this rank's
-    rows of the global batch: θ0 and θ after each step (flat fp32 on the
-    host), the three norms, the synchronised step seconds, the launches and
-    the peak memory."""
+def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS):
+    """DP_STEPS celeb steps (``make_main_path`` at ``dtype``, split over
+    ``mesh``'s fsdp ranks) on this rank's rows of the global batch: θ0, and
+    θ and the EMA after each step (whole, flat fp32 on the host), the three
+    norms, the synchronised step seconds, the launches, the peak memory and
+    the bytes this rank holds (parameters, optimizer state, EMA, the step's
+    two accumulators)."""
     from siss_tpu_torch.ops import launch_counts, reset_launch_counts
     from siss_tpu_torch.parallel import rank_rows
     from siss_tpu_torch.profile_step import make_main_path
 
-    state, step, _, _ = make_main_path(device, dtype=dtype)
+    state, step, _, _ = make_main_path(device, dtype=dtype, mesh=mesh)
     batch, draws = dp_inputs(torch, device)
     batch = {k: rank_rows(v, 1).contiguous() for k, v in batch.items()}
-    params = list(state.model.parameters())
+    sharding = state.sharding
+    acc_bytes = []
+    zeros = sharding.zeros
 
-    def flat():
-        return torch.cat([p.detach().reshape(-1).float() for p in params]).cpu()
+    def recording_zeros(dtype):
+        out = zeros(dtype)
+        acc_bytes.append(sum(t.numel() * t.element_size() for t in out))
+        return out
 
-    out = {"theta0": flat(), "theta": [], "norms": [], "seconds": []}
+    sharding.zeros = recording_zeros
+
+    def flat(tensors):
+        whole = sharding.gather_along(tensors, sharding.dims)
+        return torch.cat([t.detach().reshape(-1).float() for t in whole]).cpu()
+
+    out = {"theta0": flat(sharding.params), "theta": [], "ema": [], "norms": [], "seconds": []}
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    for d in draws:
+    for d in draws[:steps]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch, draws=d)
         torch.cuda.synchronize()
         out["seconds"].append(time.perf_counter() - t0)
         out["norms"].append({k: float(m[k]) for k in DP_NORMS})
-        out["theta"].append(flat())
+        out["theta"].append(flat(sharding.params))
+        out["ema"].append(flat(state.ema.params))
     out["launches"] = dict(launch_counts)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["held"] = {**state.held_bytes(), "accumulators": sum(acc_bytes[-2:])}  # g_x, g_a
     return out
 
 
-def dp_rank(rank, port, queue):
-    """One of phase 9(c)'s ranks: gloo on cuda:0, its 8 rows of each
-    microbatch; rank 0 writes θ after each step under DP_WORK. Puts its
-    norms, seconds, all-reduce seconds, launches, peak memory and whether
-    its θ equals rank 0's bit for bit after each step."""
+def dp_rank(rank, port, queue, fsdp, steps):
+    """One of phase 9(c)'s (``fsdp`` 1) or 9(e)'s (``fsdp`` 2) ranks: gloo on
+    cuda:0, its 8 rows of each microbatch; rank 0 writes θ after each step
+    under DP_WORK. Puts its norms, seconds, collective seconds (9(c): the
+    all-reduces; 9(e): the gather and the reduce-scatters), launches, peak
+    memory, held bytes and whether its θ and EMA equal rank 0's bit for bit
+    after each step."""
     import traceback
 
     try:
@@ -2085,43 +2123,212 @@ def dp_rank(rank, port, queue):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
-        from siss_tpu_torch.parallel import destroy_distributed, initialize_distributed
+        from siss_tpu_torch.parallel import (MeshConfig, destroy_distributed,
+                                             initialize_distributed, make_rank_mesh)
+        from siss_tpu_torch.parallel import fsdp as fsdp_module
         from siss_tpu_torch.train import step as step_module
 
         dev = initialize_distributed("cuda:0", "gloo", rank=rank, world_size=DP_RANKS,
                                      init_method=f"tcp://localhost:{port}", timeout_s=600)
-        reduce_s, all_reduce = [], step_module.all_reduce_
+        mesh = make_rank_mesh(MeshConfig(data=DP_RANKS // fsdp, fsdp=fsdp))
+        seconds = {"all_reduce": [], "gather": [], "scatter": []}
 
-        def timed_all_reduce(tensors):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            all_reduce(tensors)
-            torch.cuda.synchronize()
-            reduce_s.append(time.perf_counter() - t0)
+        def timed(fn, key):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                seconds[key].append(time.perf_counter() - t0)
+                return out
+            return run
 
-        step_module.all_reduce_ = timed_all_reduce
-        out = dp_steps(torch, torch.bfloat16, dev)
+        fsdp_module.all_reduce_ = timed(fsdp_module.all_reduce_, "all_reduce")
+        fsdp_module.Sharding.gather = timed(fsdp_module.Sharding.gather, "gather")
+        fsdp_module.Sharding.scatter_add_ = timed(fsdp_module.Sharding.scatter_add_, "scatter")
+        assert step_module.Sharding is fsdp_module.Sharding
+        out = dp_steps(torch, torch.bfloat16, dev, mesh, steps)
         equal = []
-        for theta in out["theta"]:
-            ref = theta.clone()
+        for theta, ema in zip(out["theta"], out["ema"]):
+            ref = torch.cat([theta, ema])
+            mine = ref.clone()
             dist.broadcast(ref, 0)
-            equal.append(torch.equal(ref, theta))
+            equal.append(torch.equal(ref, mine))
         if rank == 0:
-            torch.save(out["theta"], DP_WORK / "rank0_theta.pt")
+            torch.save(out["theta"], DP_WORK / f"fsdp{fsdp}_rank0_theta.pt")
         destroy_distributed()
-        queue.put({"rank": rank, "equal": equal, "norms": out["norms"],
-                   "seconds": out["seconds"], "reduce_s": reduce_s,
-                   "launches": out["launches"], "peak_gib": out["peak_gib"]})
+        queue.put({"rank": rank, "equal": equal, "norms": out["norms"], "seconds": out["seconds"],
+                   "collectives": {k: v for k, v in seconds.items() if v},
+                   "launches": out["launches"], "peak_gib": out["peak_gib"],
+                   "held": out["held"]})
     except Exception:
         queue.put({"rank": rank, "error": traceback.format_exc()})
 
 
-def phase_data_parallel(torch, card, base):
-    """9: the celeb main path at full width under data parallelism (see the
-    module docstring), then the t-shirt task on two ranks through the
-    command line."""
-    import gc
+def spawn_ranks(fsdp, steps):
+    """Run ``dp_rank`` for ``steps`` steps on DP_RANKS processes sharing the
+    card; their reports, rank 0's first. Every process is joined or killed."""
     import multiprocessing as mp
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=dp_rank, args=(r, port, queue, fsdp, steps))
+             for r in range(DP_RANKS)]
+    for proc in procs:
+        proc.start()
+    try:
+        ranks = sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"data parallel (fsdp {fsdp}) rank {r['rank']} failed:\n"
+                                 f"{r['error']}")
+    return ranks
+
+
+def check_ranks(torch, label, ranks, ref, fsdp, steps):
+    """The two ranks' checks of 9(c) and 9(e): θ (and EMA) equal across the
+    ranks after each step, exact launches, equal norms, and the errors
+    against one process's fp32 steps at most twice one process's bf16
+    errors. Returns the errors' ratios."""
+    per_step = {"siss_reduce": 4, "siss_bwd": 8}
+    for r in ranks:
+        if not all(r["equal"]):
+            raise AssertionError(f"data parallel ({label}): rank {r['rank']}'s parameters or EMA "
+                                 f"differ from rank 0's after the steps {r['equal']}")
+        want = {k: steps * per_step.get(k, 0) for k in r["launches"]}
+        if r["launches"] != want:
+            raise AssertionError(f"data parallel ({label}) rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {want}")
+        if r["norms"] != ranks[0]["norms"]:
+            raise AssertionError(f"data parallel ({label}): the ranks' norms differ")
+    two = {"theta": torch.load(DP_WORK / f"fsdp{fsdp}_rank0_theta.pt"), "norms": ranks[0]["norms"]}
+    fp32 = ref["fp32"]
+
+    def errors(run):
+        dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
+        n = sum(d.numel() for d in dtheta)
+        rel = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["norms"], fp32["norms"])
+               for k in DP_NORMS]
+        return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
+                "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
+                "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
+
+    e_one, e_two = errors(ref["bf16"]), errors(two)
+    ratios = {k: e_two[k] / e_one[k] for k in e_one}
+    print(f"data parallel ({label}): errors against one process's fp32 step, one process bf16 "
+          f"{json.dumps(e_one)}, two ranks {json.dumps(e_two)}, ratio {json.dumps(ratios)}")
+    bad = {k: v for k, v in ratios.items() if not v <= 2.0}
+    if bad:
+        raise AssertionError(f"data parallel ({label}): two ranks' errors above twice one "
+                             f"process's bf16 errors: {bad}")
+    return ratios
+
+
+def split_elements(torch):
+    """Elements of the celeb UNet's parameters that an fsdp axis of 2 splits
+    (``fsdp_dim``), and of all of them."""
+    from siss_tpu_torch.models import UNet2D, UNet2DConfig
+    from siss_tpu_torch.parallel import fsdp_dim
+
+    with torch.device("meta"):
+        params = list(UNet2D(UNet2DConfig.celebahq_256()).parameters())
+    return (sum(p.numel() for p in params if fsdp_dim(p.shape, 2) is not None),
+            sum(p.numel() for p in params))
+
+
+def cli_two_ranks(base, out_dir, *extra):
+    """Start ``delete_tshirt`` through ``torch.distributed.run`` on two gloo
+    ranks sharing cuda:0 from the pretrain ``base``; ``cli_result`` waits
+    for it. Returns (the launcher, its start time, its log)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_RANKS), "-m", "siss_tpu_torch.main", "--config-name=delete_tshirt",
+           "--device", "cuda:0", "--dist-backend", "gloo", f"checkpoint_path={base}/latest",
+           f"output_dir={out_dir}", f"dataset.path={TSHIRT_DATA}",
+           f"dataset_all.path={TSHIRT_DATA}", f"dataset_deletion.path={TSHIRT_DATA}",
+           "train_batch_size=64", *DP_CLI, *extra]
+    log = open(f"{out_dir}.log", "w+")
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), time.perf_counter(), log
+
+
+def cli_result(started, out_dir, *extra):
+    """Wait for a ``cli_two_ranks`` run and check it: one run directory, one
+    log with each step once and finite values, one checkpoint. Returns (the
+    run directory, its log's rows, checkpoints, seconds with start-up, the
+    launcher's output)."""
+    proc, t0, log = started
+    with log:
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        log.seek(0)
+        stdout = log.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"the two-rank command line {extra} failed ({proc.returncode}):\n"
+                             f"{stdout[-6000:]}")
+    runs = [p for p in out_dir.iterdir() if p.is_dir()]
+    logs = list(out_dir.rglob("metrics.jsonl"))
+    if len(runs) != 1 or len(logs) != 1:
+        raise AssertionError(f"the two-rank command line {extra}: {len(runs)} run directories and "
+                             f"{len(logs)} tracker logs, expected one of each")
+    cps = sorted(p.name for p in runs[0].iterdir() if p.name.startswith("checkpoint-"))
+    with open(logs[0]) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r["_step"] for r in rows if "loss_x/mean" in r]
+    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
+           if isinstance(v, (int, float)) and not math.isfinite(v)}
+    if (cps != [f"checkpoint-{DP_CLI_STEPS}"] or steps != list(range(1, DP_CLI_STEPS + 1))
+            or bad):
+        raise AssertionError(f"the two-rank command line {extra}: checkpoints {cps}, logged steps "
+                             f"{steps}, non-finite {bad}")
+    return runs[0], rows, cps, seconds, stdout
+
+
+def load_in_one_process(torch, run):
+    """Load a t-shirt bundle into one process's full-width state: the
+    ``unet`` item into the UNet (strict), the ``state`` item into a
+    TrainState with the config's optimizer (and an EMA when the bundle has
+    one); the UNet's parameters must equal the state's model bit for bit.
+    Returns the parameter count."""
+    from siss_tpu_torch.config import load_config, to_dict
+    from siss_tpu_torch.models import UNet2DConfig, build_unet
+    from siss_tpu_torch.train import TrainState, build_optimizer
+    from siss_tpu_torch.utils import CheckpointManager
+
+    cfg = load_config("delete_tshirt", [], str(ROOT / "configs"))
+    node = {k: tuple(v) if isinstance(v, list) else v for k, v in to_dict(cfg.unet).items()
+            if k != "_target_"}
+    mgr = CheckpointManager(str(run))
+    unet = build_unet(UNet2DConfig(**node), device="cuda")
+    unet.load_state_dict(mgr.restore_item("latest", "unet"))
+    model = build_unet(UNet2DConfig(**node), device="cuda")
+    opt, sched = build_optimizer(cfg.optimizer, model.parameters())
+    sd = mgr.restore_item("latest", "state")
+    state = TrainState.create(model, opt, sched, use_ema=sd["ema"] is not None)
+    state.load_state_dict(sd)
+    for (k, a), b in zip(unet.named_parameters(), model.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the bundle's unet and state disagree at {k}")
+    return sum(p.numel() for p in model.parameters())
+
+
+def phase_data_parallel(torch, card, base):
+    """9: the celeb main path at full width under data parallelism and
+    under fsdp (see the module docstring), then the t-shirt task on two
+    ranks through the command line, on each axis."""
+    import gc
     import shutil
     import socket
 
@@ -2131,17 +2338,15 @@ def phase_data_parallel(torch, card, base):
     DP_WORK.mkdir(parents=True)
     torch.backends.cudnn.deterministic = True
 
-    def free_port():
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            return sock.getsockname()[1]
-
     # (a) one process, no group: bf16 autocast and fp32 (TF32 off).
     ref = {name: dp_steps(torch, dtype, "cuda") for name, dtype in
            (("bf16", torch.bfloat16), ("fp32", torch.float32))}
     # (b) NCCL at world size 1, through the same code path.
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
     initialize_distributed("cuda:0", "nccl", rank=0, world_size=1,
-                           init_method=f"tcp://localhost:{free_port()}")
+                           init_method=f"tcp://localhost:{port}")
     try:
         nccl = dp_steps(torch, torch.bfloat16, "cuda:0")
     finally:
@@ -2160,103 +2365,77 @@ def phase_data_parallel(torch, card, base):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) two ranks sharing the card over gloo.
+    # (c) two ranks sharing the card over gloo, on the data axis.
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"data parallel (c): compute mode {mode}")
     if "exclusive" in mode.lower():
         raise AssertionError(f"compute mode {mode}: two processes cannot share the card, so "
                              "phase 9(c) cannot run")
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    port = free_port()
-    procs = [ctx.Process(target=dp_rank, args=(r, port, queue)) for r in range(DP_RANKS)]
-    for proc in procs:
-        proc.start()
-    try:
-        ranks = sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
-    finally:
-        for proc in procs:
-            proc.join(timeout=60)
-            if proc.is_alive():
-                proc.kill()
-    for r in ranks:
-        if "error" in r:
-            raise AssertionError(f"data parallel (c) rank {r['rank']} failed:\n{r['error']}")
-    per_step = {"siss_reduce": 4, "siss_bwd": 8}
-    for r in ranks:
-        if not all(r["equal"]):
-            raise AssertionError(f"data parallel (c): rank {r['rank']}'s parameters differ from "
-                                 f"rank 0's after the steps {r['equal']}")
-        want = {k: DP_STEPS * per_step.get(k, 0) for k in r["launches"]}
-        if r["launches"] != want:
-            raise AssertionError(f"data parallel (c) rank {r['rank']}: launches {r['launches']}, "
-                                 f"expected {want}")
-        if r["norms"] != ranks[0]["norms"]:
-            raise AssertionError("data parallel (c): the ranks' norms differ")
-    two = {"theta": torch.load(DP_WORK / "rank0_theta.pt"), "norms": ranks[0]["norms"]}
-    fp32 = ref["fp32"]
-
-    def errors(run):
-        dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
-        n = sum(d.numel() for d in dtheta)
-        rel = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["norms"], fp32["norms"])
-               for k in DP_NORMS]
-        return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
-                "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
-                "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
-
-    e_one, e_two = errors(ref["bf16"]), errors(two)
-    ratios = {k: e_two[k] / e_one[k] for k in e_one}
-    print(f"data parallel (c) ({card}): errors against one process's fp32 step, one process "
-          f"bf16 {json.dumps(e_one)}, two ranks {json.dumps(e_two)}, ratio {json.dumps(ratios)}")
-    bad = {k: v for k, v in ratios.items() if not v <= 2.0}
-    if bad:
-        raise AssertionError(f"data parallel (c): two ranks' errors above twice one process's "
-                             f"bf16 errors: {bad}")
-    for r in ranks:
+    data_ranks = spawn_ranks(1, DP_DATA_STEPS)
+    check_ranks(torch, "c", data_ranks, ref, 1, DP_DATA_STEPS)
+    for r in data_ranks:
         print(f"data parallel (c) ({card}) rank {r['rank']}: step s "
               f"{[round(t, 4) for t in r['seconds']]} (one process bf16 "
               f"{[round(t, 4) for t in ref['bf16']['seconds']]}), all-reduce s "
-              f"{[round(t, 4) for t in r['reduce_s']]} (g_x, g_a a step), peak memory "
-              f"{r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}), "
+              f"{[round(t, 4) for t in r['collectives']['all_reduce']]} (g_x, g_a a step), peak "
+              f"memory {r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}), "
               f"launches {r['launches']}")
-    del ref, two
+
+    # (e) data=1 x fsdp=2 on two ranks sharing the card over gloo.
+    fsdp_ranks = spawn_ranks(2, DP_STEPS)
+    check_ranks(torch, "e", fsdp_ranks, ref, 2, DP_STEPS)
+    split, total = split_elements(torch)
+    whole = data_ranks[0]["held"]
+    # each category holds fp32 tensors of the parameters' shapes: 1 (params,
+    # EMA) or 2 (AdamW's moments, the two accumulators) of them
+    copies = {"params": 1, "ema": 1, "optimizer": 2, "accumulators": 2}
+    for r in fsdp_ranks:
+        want = {k: whole[k] - 4 * copies[k] * split // 2 for k in HELD}
+        if {k: r["held"][k] for k in HELD} != want:
+            raise AssertionError(f"data parallel (e) rank {r['rank']}: held bytes {r['held']}, "
+                                 f"expected {want}")
+    print(f"data parallel (e) ({card}): {split} of {total} parameters split over fsdp 2; held "
+          f"bytes a rank {json.dumps({k: fsdp_ranks[0]['held'][k] for k in HELD})} against 9(c)'s "
+          f"{json.dumps({k: whole[k] for k in HELD})}; the step's gathered working copy "
+          f"{4 * split} bytes beside them")
+    for r in fsdp_ranks:
+        c = r["collectives"]
+        print(f"data parallel (e) ({card}) rank {r['rank']}: step s "
+              f"{[round(t, 4) for t in r['seconds']]} (9(c) rank 0 "
+              f"{[round(t, 4) for t in data_ranks[0]['seconds']]}), gather s "
+              f"{[round(t, 4) for t in c['gather']]} (1 a step), reduce-scatter s "
+              f"{[round(t, 4) for t in c['scatter']]} (g_x, g_a per microbatch), "
+              f"{round(sum(c['gather']) + sum(c['scatter']), 4)} s in all; peak memory "
+              f"{r['peak_gib']:.2f} GiB (9(c) {data_ranks[0]['peak_gib']:.2f}), launches "
+              f"{r['launches']}")
+    del ref
     gc.collect()
 
-    # (d) the command line on two ranks sharing the card.
-    out_dir = DP_WORK / "cli"
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(DP_RANKS), "-m", "siss_tpu_torch.main", "--config-name=delete_tshirt",
-           "--device", "cuda:0", "--dist-backend", "gloo", f"checkpoint_path={base}/latest",
-           f"output_dir={out_dir}", f"dataset.path={TSHIRT_DATA}",
-           f"dataset_all.path={TSHIRT_DATA}", f"dataset_deletion.path={TSHIRT_DATA}",
-           "train_batch_size=64", *DP_CLI]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"data parallel (d): the two-rank command line failed "
-                             f"({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    runs = [p for p in out_dir.iterdir() if p.is_dir()]
-    logs = list(out_dir.rglob("metrics.jsonl"))
-    if len(runs) != 1 or len(logs) != 1:
-        raise AssertionError(f"data parallel (d): {len(runs)} run directories and {len(logs)} "
-                             "tracker logs, expected one of each")
-    cps = sorted(p.name for p in runs[0].iterdir() if p.name.startswith("checkpoint-"))
-    with open(logs[0]) as f:
-        rows = [json.loads(line) for line in f]
-    steps = [r["_step"] for r in rows if "loss_x/mean" in r]
-    bad = {(r["_step"], k): v for r in rows for k, v in r.items()
-           if isinstance(v, (int, float)) and not math.isfinite(v)}
-    if cps != ["checkpoint-3"] or steps != [1, 2, 3] or bad:
-        raise AssertionError(f"data parallel (d): checkpoints {cps}, logged steps {steps}, "
-                             f"non-finite {bad}")
-    ranks_seen = sorted(set(re.findall(r"rank=(\d)/2", proc.stdout)))
+    # (d) the command line on two ranks sharing the card, data axis, and (f)
+    # the same with mesh.fsdp=2, side by side.
+    d_run = cli_two_ranks(base, DP_WORK / "cli")
+    f_started = cli_two_ranks(base, DP_WORK / "cli_fsdp", "mesh.fsdp=2")
+    run, rows, cps, seconds, stdout = cli_result(d_run, DP_WORK / "cli")
+    f_run, f_rows, f_cps, f_seconds, f_stdout = cli_result(f_started, DP_WORK / "cli_fsdp",
+                                                           "mesh.fsdp=2")
+    ranks_seen = sorted(set(re.findall(r"rank=(\d)/2", stdout)))
     print(f"data parallel (d) ({card}): delete_tshirt on 2 gloo ranks sharing cuda:0 "
-          f"(ranks {ranks_seen}), {seconds:.1f} s with start-up; one run directory "
-          f"{runs[0].name}, one log, {cps}; img/s "
+          f"(ranks {ranks_seen}), {seconds:.1f} s with start-up, beside (f); one run directory "
+          f"{run.name}, one log, {cps}; img/s "
           f"{[round(r['images_per_sec'], 2) for r in rows if 'loss_x/mean' in r]}")
+
+    if f_stdout.count("mesh=data 1 x fsdp 2") != DP_RANKS:
+        raise AssertionError("data parallel (f): the ranks did not print the data 1 x fsdp 2 mesh")
+    keys = [set().union(*map(set, r)) for r in (rows, f_rows)]
+    if keys[0] != keys[1]:
+        raise AssertionError(f"data parallel (f): logged keys differ from (d)'s: "
+                             f"{sorted(keys[0] ^ keys[1])}")
+    n = load_in_one_process(torch, f_run)
+    print(f"data parallel (f) ({card}): delete_tshirt with mesh.fsdp=2 on 2 gloo ranks sharing "
+          f"cuda:0, {f_seconds:.1f} s with start-up; one run directory {f_run.name}, one log "
+          f"with (d)'s {len(keys[0])} keys, {f_cps}, loaded whole in one process ({n} params); "
+          f"img/s {[round(r['images_per_sec'], 2) for r in f_rows if 'loss_x/mean' in r]}")
     torch.backends.cudnn.deterministic = False
 
 
@@ -2288,19 +2467,25 @@ def main() -> int:
     check_ptxas(info["log"])
     check_tensor_core_sass(info["path"])
 
-    record = phase_kernels(torch)
-    record.update(phase_flash_kernels(torch))
-    fp32_counts = phase_tiny_step_parity(torch)
-    base, siss_ratios = phase_tshirt(torch, card)
-    phase_tshirt_objectives(torch, card, base, siss_ratios)
-    phase_classifier(torch, card, base)
-    celeb_counts = phase_main_path(torch)
-    phase_celeb_task(torch, card)
-    sd_counts = phase_sd_path(torch)
-    phase_sd_task(torch, card)
-    phase_sd_knobs(torch, card)
-    phase_sd_fast_path(torch, card)
-    phase_data_parallel(torch, card, base)
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    record = phase("3", phase_kernels, torch)
+    record.update(phase("4", phase_flash_kernels, torch))
+    fp32_counts = phase("5", phase_tiny_step_parity, torch)
+    base, siss_ratios = phase("6", phase_tshirt, torch, card)
+    phase("6b", phase_tshirt_objectives, torch, card, base, siss_ratios)
+    phase("6c", phase_classifier, torch, card, base)
+    celeb_counts = phase("7", phase_main_path, torch)
+    phase("7b", phase_celeb_task, torch, card)
+    sd_counts = phase("8", phase_sd_path, torch)
+    phase("8b", phase_sd_task, torch, card)
+    phase("8c(b)", phase_sd_knobs, torch, card)
+    phase("8c(a)", phase_sd_fast_path, torch, card)
+    phase("9", phase_data_parallel, torch, card, base)
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed

@@ -9,8 +9,10 @@ Outputs are numpy NHWC float arrays in [0, 1], as in the JAX package. With
 ``set_generator=True`` the draws come from a generator seeded with
 ``random_seed``, so panels are reproducible from call to call.
 
-Under a process group the batch is split over the ranks when they divide
-it, as the JAX package shards it over the mesh's data axis (``_shardable``):
+Under a process group the batch is split over all ranks when they divide
+it, as the JAX package shards it over the mesh's ``("data", "fsdp")`` axes
+(``_shardable``), and the model is whole on every rank (``Task.eval_model``
+gathers a model split over ``fsdp``):
 every rank draws the global batch's noise, keeps its rows, runs the model on
 them, and gets the whole batch back (``gather_rows``), so the samples are
 the one-process samples. A batch the ranks do not divide is computed whole

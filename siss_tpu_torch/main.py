@@ -20,7 +20,10 @@ each rank joins one process group (``--dist-backend``: ``nccl`` on CUDA
 and ``gloo`` on the CPU by default; ranks that share one card need
 ``gloo``), runs on ``cuda:LOCAL_RANK`` (or the ``--device cuda:N`` named)
 and takes its share of every batch. Every rank uses rank 0's
-``output_dir``.
+``output_dir``. The config's ``mesh`` lays the ranks out as ``data × fsdp``
+(``mesh.fsdp=2`` splits the UNet's parameters, optimizer state and EMA over
+pairs of ranks); each rank prints the resolved mesh. ``mesh.tensor`` above 1
+raises.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def _run_one(config_name, overrides, config_dir, device):
 
     task_cls = get_object(str(cfg.task._target_))
     task = task_cls(cfg, device=device)
-    ranks = f" rank={rank()}/{world_size()}" if is_initialized() else ""
+    ranks = f" rank={rank()}/{world_size()} mesh={task.mesh}" if is_initialized() else ""
     print(f"[siss_tpu_torch] task={task_cls.__name__} device={task.device}{ranks} "
           f"output_dir={cfg.output_dir}")
     task.run()

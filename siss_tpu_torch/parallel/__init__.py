@@ -1,46 +1,61 @@
-"""Data parallelism over ``torch.distributed``: port of the ``data`` axis of
-``siss_tpu/parallel/``. The ``fsdp`` and ``tensor`` axes are not ported
-(``mesh.resolve_mesh`` raises for them)."""
+"""Data and fully sharded data parallelism over ``torch.distributed``: port
+of the ``data`` and ``fsdp`` axes of ``siss_tpu/parallel/``. The ``tensor``
+axis is not ported (``mesh.resolve_mesh`` raises for it)."""
 
 from siss_tpu_torch.parallel.distributed import (
+    RankMesh,
     barrier,
     broadcast_object,
     destroy_distributed,
     initialize_distributed,
     is_initialized,
     is_main,
+    make_rank_mesh,
     maybe_initialize_distributed,
     rank,
     world_size,
 )
-from siss_tpu_torch.parallel.mesh import MeshConfig, resolve_mesh
+from siss_tpu_torch.parallel.fsdp import Sharding, shard_module, world_mesh
+from siss_tpu_torch.parallel.mesh import MeshConfig, fsdp_dim, resolve_mesh
 from siss_tpu_torch.parallel.multihost import (
+    all_gather_along,
     all_reduce_,
     all_reduce_mean,
+    all_reduce_sum,
     any_rank,
     gather_rows,
     make_rank_sampler,
     process_batch_slice,
     rank_rows,
+    reduce_scatter_add_,
 )
 
 __all__ = [
     "MeshConfig",
+    "RankMesh",
+    "Sharding",
+    "all_gather_along",
     "all_reduce_",
     "all_reduce_mean",
+    "all_reduce_sum",
     "any_rank",
     "barrier",
     "broadcast_object",
     "destroy_distributed",
+    "fsdp_dim",
     "gather_rows",
     "initialize_distributed",
     "is_initialized",
     "is_main",
+    "make_rank_mesh",
     "make_rank_sampler",
     "maybe_initialize_distributed",
     "process_batch_slice",
     "rank",
     "rank_rows",
+    "reduce_scatter_add_",
     "resolve_mesh",
+    "shard_module",
+    "world_mesh",
     "world_size",
 ]

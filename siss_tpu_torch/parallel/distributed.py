@@ -8,18 +8,25 @@ with a 7200 s timeout (``delete_celeb.py:99-101``). The port is launched by
 and ``MASTER_PORT``; ``maybe_initialize_distributed`` reads them. One rank
 drives one device. Every helper here is correct without a process group
 (one process: rank 0 of 1).
+
+``make_rank_mesh`` lays the ranks out as the resolved ``data × fsdp`` mesh,
+data-outermost as the JAX ``make_mesh`` reshapes its devices: rank r is at
+``data`` coordinate r // fsdp and ``fsdp`` coordinate r % fsdp. An axis's
+group holds the ranks that differ only along it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from siss_tpu_torch.device import resolve_device
+from siss_tpu_torch.parallel.mesh import MeshConfig, resolve_mesh
 
 #: Seconds a collective waits for the other ranks before it fails: a rank
 #: that dies then fails the others instead of hanging them. Rank 0 writing a
@@ -110,6 +117,56 @@ def broadcast_object(obj: Any) -> Any:
     return box[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """This rank's place in the ``data × fsdp`` mesh. ``data_group`` holds
+    the ranks with this rank's ``fsdp`` coordinate, ``fsdp_group`` those
+    with its ``data`` coordinate; None is the whole world. An axis of size
+    1 has no collective."""
+
+    data: int = 1
+    fsdp: int = 1
+    data_group: Any = None
+    fsdp_group: Any = None
+
+    @property
+    def fsdp_rank(self) -> int:
+        """This rank's coordinate on the ``fsdp`` axis: which shard it holds."""
+        return rank() % self.fsdp
+
+    def __str__(self) -> str:
+        return f"data {self.data} x fsdp {self.fsdp}"
+
+
+#: The subgroups of each 2-D mesh built in this world: ``new_group`` is
+#: collective, so a world builds each once, every rank in the same order.
+_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
+
+
+def make_rank_mesh(cfg: MeshConfig = MeshConfig()) -> RankMesh:
+    """``cfg`` resolved over the ranks (``resolve_mesh``: ``tensor`` > 1
+    raises), with this rank's groups. Collective on every rank when both
+    axes are above 1 and the world has not built that mesh's groups yet."""
+    mesh = resolve_mesh(cfg, world_size())
+    if mesh.data == 1 or mesh.fsdp == 1:   # one axis spans the world
+        return RankMesh(mesh.data, mesh.fsdp)
+    key = (mesh.data, mesh.fsdp)
+    if key not in _GROUPS:
+        r, D, F = rank(), mesh.data, mesh.fsdp
+        fsdp_group = data_group = None
+        for d in range(D):
+            group = dist.new_group([d * F + f for f in range(F)])
+            if r // F == d:
+                fsdp_group = group
+        for f in range(F):
+            group = dist.new_group([d * F + f for d in range(D)])
+            if r % F == f:
+                data_group = group
+        _GROUPS[key] = (data_group, fsdp_group)
+    return RankMesh(mesh.data, mesh.fsdp, *_GROUPS[key])
+
+
 def destroy_distributed() -> None:
     if is_initialized():
+        _GROUPS.clear()
         dist.destroy_process_group()

@@ -1,17 +1,22 @@
 """How the ranks are laid out: counterpart of ``siss_tpu/parallel/mesh.py``.
 
-The JAX package lays its devices out as a (data, fsdp, tensor) mesh. The
-port has one device per rank and ports the ``data`` axis: the batch is
-split over the ranks, the parameters and optimizer state are replicated,
-and the step all-reduces its two gradient trees (``parallel.multihost``).
-``fsdp`` (parameters and optimizer state sharded) and ``tensor`` (the
-model split Megatron-style) are not ported yet.
+The JAX package lays its devices out as a (data, fsdp, tensor) mesh,
+data-outermost. The port has one device per rank and ports the ``data``
+and ``fsdp`` axes: global rank r sits at ``data`` coordinate r // fsdp and
+``fsdp`` coordinate r % fsdp, the batch is split over all ranks (as
+``batch_sharding`` splits it over ``("data", "fsdp")``), and each large
+parameter is split over the ``fsdp`` ranks along the dimension that
+``fsdp_dim`` picks (``parallel.fsdp``). ``tensor`` (the model split
+Megatron-style) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
+
+#: Tensors with fewer elements stay whole on every rank (JAX's ``min_size``).
+FSDP_MIN_SIZE = 2 ** 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,16 +44,39 @@ class MeshConfig:
 
 
 def resolve_mesh(cfg: MeshConfig, world_size: int) -> MeshConfig:
-    """``cfg`` resolved over ``world_size`` ranks, one device each. An
-    ``fsdp`` or ``tensor`` axis above 1 raises ``NotImplementedError``
-    first. Unlike the JAX ``make_mesh``, an explicit ``data`` that is not
-    the world size raises (``resolve``) instead of leaving ranks idle."""
-    if cfg.fsdp > 1:
-        raise NotImplementedError(
-            f"mesh {cfg}: the fsdp axis (parameters and optimizer state sharded) is not "
-            "ported yet (ROADMAP Queue 1 item 12b); use fsdp: 1")
+    """``cfg`` resolved over ``world_size`` ranks, one device each. A
+    ``tensor`` axis above 1 raises ``NotImplementedError`` first. Unlike the
+    JAX ``make_mesh``, an explicit ``data`` that leaves ranks over raises
+    (``resolve``) instead of leaving them idle."""
     if cfg.tensor > 1:
         raise NotImplementedError(
             f"mesh {cfg}: the tensor axis (the model split over ranks) is not ported yet "
             "(ROADMAP Queue 1 item 12c); use tensor: 1")
     return cfg.resolve(world_size)
+
+
+def _flax_axes(ndim: int) -> Sequence[int]:
+    """The torch dimension of each flax axis of a parameter: a conv kernel
+    is flax HWIO and torch OIHW, a dense kernel flax [in, out] and torch
+    [out, in]; any other rank keeps its order (``utils.convert``)."""
+    return {4: (2, 3, 1, 0), 2: (1, 0)}.get(ndim, tuple(range(ndim)))
+
+
+def fsdp_dim(shape: Sequence[int], n: int, min_size: int = FSDP_MIN_SIZE) -> Optional[int]:
+    """The torch dimension of a parameter of ``shape`` that an ``fsdp`` axis
+    of ``n`` ranks splits, or None (replicated): JAX's ``_fsdp_spec``, read
+    in the flax layout. A tensor under ``min_size`` elements stays whole;
+    otherwise the last flax axis that ``n`` divides is split, so no shard
+    is ever padded."""
+    shape = tuple(int(s) for s in shape)
+    numel = 1
+    for s in shape:
+        numel *= s
+    if n <= 1 or numel < min_size:
+        return None
+    axes = _flax_axes(len(shape))
+    for axis in reversed(range(len(shape))):
+        dim = axes[axis]
+        if shape[dim] % n == 0 and shape[dim] >= n:
+            return dim
+    return None

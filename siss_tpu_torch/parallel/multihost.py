@@ -10,12 +10,21 @@ of the global batch a rank holds (``rank_rows``). Every rank draws the
 global batch's randomness and keeps its rows, so a step on R ranks is the
 one-process step on the global batch up to the order of its sums.
 
+The ``fsdp`` axis adds an all-gather and a reduce-scatter (SUM) along one
+dimension of each tensor within a group (``all_gather_along``,
+``reduce_scatter_add_``) and the sum of a short vector of partial sums
+(``all_reduce_sum``). Under NCCL they are ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``; gloo has neither for CUDA tensors, so under gloo
+they are one ``all_reduce`` of a zero-filled buffer of every rank's blocks,
+as ``gather_rows`` is. The backend picks the form; a collective that fails
+raises.
+
 Every function here is correct without a process group (rank 0 of 1).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -64,6 +73,11 @@ def gather_rows(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return out
 
 
+def _group_size(group) -> int:
+    """The ranks of ``group`` (None: the world); 1 without a process group."""
+    return dist.get_world_size(group) if is_initialized() else 1
+
+
 def _flat(t: torch.Tensor) -> torch.Tensor:
     """A 1-D view of a dense tensor's elements in memory order (contiguous
     or channels_last): an elementwise reduction does not care about order."""
@@ -72,13 +86,14 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
     return t.as_strided((t.numel(),), (1,), t.storage_offset())
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor],
-                bucket_numel: int = BUCKET_NUMEL) -> Sequence[torch.Tensor]:
-    """All-reduce (SUM) every tensor in place, in its own dtype. Tensors below
-    ``bucket_numel`` elements are packed, in order, into one flat buffer of
-    that size and reduced a bucket at a time; larger ones are reduced
-    alone. Without a process group it does nothing."""
-    if not is_initialized():
+def all_reduce_(tensors: Sequence[torch.Tensor], bucket_numel: int = BUCKET_NUMEL,
+                group=None) -> Sequence[torch.Tensor]:
+    """All-reduce (SUM) every tensor in place over ``group`` (None: the
+    world), in its own dtype. Tensors below ``bucket_numel`` elements are
+    packed, in order, into one flat buffer of that size and reduced a bucket
+    at a time; larger ones are reduced alone. Over one rank it does
+    nothing."""
+    if _group_size(group) == 1:
         return tensors
     buffers = {}
     pending: List[torch.Tensor] = []
@@ -93,7 +108,7 @@ def all_reduce_(tensors: Sequence[torch.Tensor],
             buffers[key] = torch.empty(bucket_numel, dtype=key[0], device=key[1])
         buf = buffers[key][:pending_numel]
         torch.cat([_flat(p) for p in pending], out=buf)
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
         for p, chunk in zip(pending, buf.split([p.numel() for p in pending])):
             _flat(p).copy_(chunk)
         pending.clear()
@@ -101,7 +116,7 @@ def all_reduce_(tensors: Sequence[torch.Tensor],
 
     for t in tensors:
         if t.numel() >= bucket_numel:
-            dist.all_reduce(_flat(t))
+            dist.all_reduce(_flat(t), group=group)
             continue
         if pending and (t.dtype != pending[0].dtype or t.device != pending[0].device
                         or pending_numel + t.numel() > bucket_numel):
@@ -110,6 +125,107 @@ def all_reduce_(tensors: Sequence[torch.Tensor],
         pending_numel += t.numel()
     flush()
     return tensors
+
+
+def _buckets(tensors: Sequence[torch.Tensor], numel, bucket_numel: int):
+    """Runs of consecutive indices of ``tensors`` with one dtype and device
+    whose ``numel(i)`` add up to at most ``bucket_numel`` (a larger one
+    alone)."""
+    run: List[int] = []
+    total = 0
+    for i, t in enumerate(tensors):
+        if run and (t.dtype != tensors[run[0]].dtype or t.device != tensors[run[0]].device
+                    or total + numel(i) > bucket_numel):
+            yield run
+            run, total = [], 0
+        run.append(i)
+        total += numel(i)
+    if run:
+        yield run
+
+
+def _like(chunk: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A 1-D ``chunk`` of ``like.numel()`` elements viewed with the shape and
+    strides of the dense (contiguous or channels_last) ``like``."""
+    _flat(like)
+    return chunk.as_strided(like.shape, like.stride())
+
+
+def all_gather_along(shards: Sequence[torch.Tensor], dims: Sequence[int], group=None,
+                     bucket_numel: int = BUCKET_NUMEL) -> List[torch.Tensor]:
+    """The whole tensors of which each rank of ``group`` holds, in rank
+    order, the equal blocks ``shards[i]`` along ``dims[i]``, on every rank
+    (new tensors in the shards' memory format; the shards themselves over
+    one rank). The shards travel in memory order, packed into buckets of at
+    most ``bucket_numel`` gathered elements."""
+    n_ranks = _group_size(group)
+    if n_ranks == 1:
+        return list(shards)
+    me = dist.get_rank(group)
+    nccl = dist.get_backend(group) == "nccl"
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
+    for run in _buckets(shards, lambda i: n_ranks * shards[i].numel(), bucket_numel):
+        sizes = [shards[i].numel() for i in run]
+        n = sum(sizes)
+        local = torch.cat([_flat(shards[i]) for i in run])
+        if nccl:
+            buf = torch.empty(n_ranks * n, dtype=local.dtype, device=local.device)
+            dist.all_gather_into_tensor(buf, local, group=group)
+        else:
+            buf = torch.zeros(n_ranks * n, dtype=local.dtype, device=local.device)
+            buf[me * n:(me + 1) * n].copy_(local)
+            dist.all_reduce(buf, group=group)
+        blocks = buf.view(n_ranks, n)
+        for i, chunks in zip(run, zip(*(b.split(sizes) for b in blocks))):
+            out[i] = torch.cat([_like(c, shards[i]) for c in chunks], dim=dims[i])
+    return out
+
+
+def reduce_scatter_add_(tensors: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
+                        outs: Sequence[torch.Tensor], group=None,
+                        bucket_numel: int = BUCKET_NUMEL) -> None:
+    """Add to each dense ``outs[i]`` (in its own dtype) this rank's block of
+    the sum over ``group`` of ``tensors[i]``: block r along ``dims[i]`` on
+    rank r, or the whole sum where ``dims[i]`` is None. The sums run in the
+    tensors' dtype; the blocks travel in the outs' memory order, packed into
+    buckets of at most ``bucket_numel`` elements before the scatter. Over
+    one rank it adds each tensor to its out."""
+    n_ranks = _group_size(group)
+    if n_ranks == 1:
+        torch._foreach_add_(list(outs), [t.to(o.dtype) for t, o in zip(tensors, outs)])
+        return
+    me = dist.get_rank(group)
+    nccl = dist.get_backend(group) == "nccl"
+    for run in _buckets(tensors, lambda i: n_ranks * outs[i].numel(), bucket_numel):
+        sizes = [outs[i].numel() for i in run]
+        n = sum(sizes)
+        t0 = tensors[run[0]]
+        buf = torch.empty(n_ranks, n, dtype=t0.dtype, device=t0.device)
+        for r, block in enumerate(buf):
+            for i, chunk in zip(run, block.split(sizes)):
+                part = tensors[i]
+                if dims[i] is not None:
+                    size = outs[i].shape[dims[i]]
+                    part = part.narrow(dims[i], r * size, size)
+                _like(chunk, outs[i]).copy_(part)
+        if nccl:
+            mine = torch.empty(n, dtype=buf.dtype, device=buf.device)
+            dist.reduce_scatter_tensor(mine, buf.view(-1), group=group)
+        else:
+            dist.all_reduce(buf, group=group)
+            mine = buf[me]
+        for i, chunk in zip(run, mine.split(sizes)):
+            outs[i].add_(_like(chunk, outs[i]).to(outs[i].dtype))
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A short tensor of partial sums summed over ``group`` (a new tensor;
+    ``x`` itself over one rank)."""
+    if _group_size(group) == 1:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:

@@ -48,18 +48,23 @@ _FAMILIES = (
 )
 
 
-def make_main_path(device="cuda", dtype=torch.bfloat16):
+def make_main_path(device="cuda", dtype=torch.bfloat16, mesh=None):
     """(state, step, batch, generator) of the flagship step on ``device``;
-    ``dtype`` is the UNet's compute type (bf16 autocast over fp32 params)."""
+    ``dtype`` is the UNet's compute type (bf16 autocast over fp32 params);
+    ``mesh`` a ``parallel.RankMesh`` whose ``fsdp`` axis splits the UNet
+    (None: every rank on ``data``)."""
     from siss_tpu_torch.diffusion import NoiseSchedule
     from siss_tpu_torch.models import UNet2DConfig, build_unet
+    from siss_tpu_torch.parallel import shard_module
     from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                       build_optimizer, unet_eps_apply)
 
     model = build_unet(UNet2DConfig.celebahq_256(), seed=0, dtype=dtype, device=device)
+    sharding = shard_module(model, mesh)
     opt, sched = build_optimizer({"_target_": "torch.optim.AdamW", "lr": 5e-6,
-                                  "betas": [0.95, 0.999], "weight_decay": 1e-6}, model.parameters())
-    state = TrainState.create(model, opt, sched, use_ema=True)
+                                  "betas": [0.95, 0.999], "weight_decay": 1e-6}, model.parameters(),
+                                 sharding=sharding)
+    state = TrainState.create(model, opt, sched, use_ema=True, sharding=sharding)
     step = build_deletion_train_step(
         unet_eps_apply, NoiseSchedule.create(1000, "linear", device=device),
         DeletionStepConfig(loss_params=(("lambd", 0.5),), scaling_norm=500.0,
@@ -70,7 +75,7 @@ def make_main_path(device="cuda", dtype=torch.bfloat16):
     return state, step, batch, gen
 
 
-def make_sd_path(device="cuda"):
+def make_sd_path(device="cuda", mesh=None):
     """(state, step, batch, generator) of the SD-1.x latent SISS step on
     ``device``, as ``bench.py --workload sd`` builds it (``build_sd``) with
     ``configs/delete_sd.yaml``'s settings and ``--attention-impl flash``:
@@ -78,17 +83,20 @@ def make_sd_path(device="cuda"):
     autocast over fp32 params, AdamW(1e-5, betas (0.9, 0.999), wd 1e-2,
     eps 1e-8), scaling_norm 750, λ 0.5, t ≡ 999, max_grad_norm 1, no EMA,
     microbatch 1 × 16 accumulation steps of [64, 64, 4] latents, and one
-    77×768 prompt embedding shared by every microbatch."""
+    77×768 prompt embedding shared by every microbatch. ``mesh`` as in
+    ``make_main_path``."""
     from siss_tpu_torch.diffusion import sd_noise_schedule
     from siss_tpu_torch.models import UNet2DConditionConfig, build_unet_cond
+    from siss_tpu_torch.parallel import shard_module
     from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                       build_optimizer, cond_unet_eps_apply)
 
     cfg = UNet2DConditionConfig.sd_v1(gradient_checkpointing=True, attention_impl="flash",
                                       remat_attention=False)
     model = build_unet_cond(cfg, seed=0, dtype=torch.bfloat16, device=device)
-    opt, sched = build_optimizer(SD_ADAMW, model.parameters())
-    state = TrainState.create(model, opt, sched)
+    sharding = shard_module(model, mesh)
+    opt, sched = build_optimizer(SD_ADAMW, model.parameters(), sharding=sharding)
+    state = TrainState.create(model, opt, sched, sharding=sharding)
     step = build_deletion_train_step(cond_unet_eps_apply, sd_noise_schedule(device=device),
                                      DeletionStepConfig(**SD_STEP_KW))
     gen = torch.Generator(device=device).manual_seed(0)

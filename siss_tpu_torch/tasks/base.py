@@ -2,11 +2,14 @@
 
 A task runs on the ``device`` it is given (``"cuda"`` unless the caller asks
 for the CPU): under a process group, its rank's device. The config's
-``mesh`` resolves over the ranks (``data: -1`` is all of them); an ``fsdp``
-or ``tensor`` axis above 1 raises, as those axes are not ported. Under
-several ranks the batch is split over them, the tracker writes on rank 0
-only, rank 0 writes the checkpoints, and the preemption stop is agreed by
-all ranks before any saves. Precision: ``compute_dtype: float32`` runs
+``mesh`` resolves over the ranks (``data: -1`` is all of them) into
+``self.mesh`` with its process groups; a ``tensor`` axis above 1 raises, as
+that axis is not ported. The UNet tasks split their UNet's parameters over
+the ``fsdp`` axis (``parallel.shard_module``) after loading its weights, as
+the JAX tasks call ``shard_params_fsdp``. Under several ranks the batch is
+split over all of them, the tracker writes on rank 0 only, every rank
+gathers a checkpoint and rank 0 writes it, and the preemption stop is
+agreed by all ranks before any saves. Precision: ``compute_dtype: float32`` runs
 the model in full float32, so both TF32 switches are set off
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``); ``bfloat16`` autocasts the model's
@@ -16,7 +19,6 @@ body over float32 params.
 from __future__ import annotations
 
 import abc
-import copy
 import os
 import time
 from typing import List, Tuple
@@ -29,7 +31,7 @@ from siss_tpu_torch.data import make_synthetic_mnist_tshirt
 from siss_tpu_torch.device import resolve_device
 from siss_tpu_torch.diffusion import NoiseSchedule
 from siss_tpu_torch.models import UNet2D, UNet2DConfig, build_unet
-from siss_tpu_torch.parallel import MeshConfig, any_rank, is_main, resolve_mesh, world_size
+from siss_tpu_torch.parallel import MeshConfig, any_rank, is_main, make_rank_mesh
 from siss_tpu_torch.train.state import TrainState
 from siss_tpu_torch.utils import CheckpointManager, Tracker
 
@@ -51,10 +53,11 @@ class Task(abc.ABC):
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        resolve_mesh(MeshConfig.from_cfg(cfg.get("mesh")), world_size())  # raises for 12b, 12c
+        #: This rank's place in the data × fsdp mesh (raises for item 12c).
+        self.mesh = make_rank_mesh(MeshConfig.from_cfg(cfg.get("mesh")))
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self._ema_model = None
+        self._eval_model = None
         #: Per-step seconds (host clock after a device synchronise) and
         #: seconds per evaluation, for the caller that measures the run.
         self.step_seconds: List[float] = []
@@ -158,24 +161,26 @@ class Task(abc.ABC):
         return t
 
     def eval_model(self, state: TrainState) -> torch.nn.Module:
-        """The model to sample from: the EMA weights when the state keeps
-        them (in a copy of the model refreshed on each call), else the
-        model."""
-        if state.ema is None:
+        """The model to sample from, whole on every rank: the EMA weights
+        when the state keeps them, else the model's, in a copy of the model
+        refreshed (gathered, when split over ``fsdp``) on each call; the
+        model itself when it is whole and has no EMA. Collective."""
+        sharding = state.sharding
+        if state.ema is None and not sharding.sharded:
             return state.model
-        if self._ema_model is None:
-            self._ema_model = copy.deepcopy(state.model).requires_grad_(False)
-        with torch.no_grad():
-            for p, e in zip(self._ema_model.parameters(), state.ema.params):
-                p.copy_(e)
-        return self._ema_model
+        if self._eval_model is None:
+            self._eval_model = sharding.full_copy()
+        return sharding.load_full(self._eval_model,
+                                  None if state.ema is None else state.ema.params)
 
     @staticmethod
     def bundle(state: TrainState, generator: torch.Generator) -> dict:
         """A checkpoint bundle: the resumable ``state`` (with the step's
-        generator), and the ``unet`` and ``unet_ema`` weights."""
-        return {"state": {**state.state_dict(), "generator": generator.get_state()},
-                "unet": state.model.state_dict(), "unet_ema": state.ema_state_dict()}
+        generator), and the ``unet`` and ``unet_ema`` weights, whole in the
+        one-process format. Collective: every rank builds it."""
+        sd = state.state_dict()
+        return {"state": {**sd, "generator": generator.get_state()}, "unet": sd["model"],
+                "unet_ema": None if sd["ema"] is None else sd["ema"]["params"]}
 
     @staticmethod
     def restore(state: TrainState, generator: torch.Generator, sd: dict) -> None:

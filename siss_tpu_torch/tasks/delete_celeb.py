@@ -48,7 +48,7 @@ from siss_tpu_torch.diffusion.sde import VPSDE
 from siss_tpu_torch.evaluate import Evaluator
 from siss_tpu_torch.metrics import Classifier, LikelihoodEvaluator, MembershipLoss
 from siss_tpu_torch.metrics.inception_v3 import build_fid_evaluator
-from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, shard_module
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, unet_eps_apply)
@@ -94,12 +94,13 @@ class DeleteCeleb(Task):
         model, ucfg = self.build_unet()
         schedule = self.build_schedule()
         self._load_pretrained(model)
+        sharding = shard_module(model, self.mesh)  # siss_tpu/tasks/delete_celeb.py:69
 
         n_forget = len(cfg.deletion.img_name)
         training_steps = int(cfg.training_steps) * n_forget
         opt, lr_schedule = build_optimizer(cfg.optimizer, model.parameters(),
                                            str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
-                                           training_steps)
+                                           training_steps, sharding=sharding)
         accum = int(cfg.gradient_accumulation_steps)
         bs = int(cfg.train_batch_size)
         step_cfg = DeletionStepConfig(
@@ -118,7 +119,8 @@ class DeleteCeleb(Task):
             fused_siss=bool(cfg.deletion.get("fused_siss", True)),
         )
         step_fn = build_deletion_train_step(unet_eps_apply, schedule, step_cfg)
-        state = TrainState.create(model, opt, lr_schedule, use_ema=step_cfg.use_ema)
+        state = TrainState.create(model, opt, lr_schedule, use_ema=step_cfg.use_ema,
+                                  sharding=sharding)
 
         bs_local = process_batch_slice(bs)
         keep_loader = BatchLoader(dataset_all, make_rank_sampler(InfiniteSampler, len(dataset_all),

@@ -60,7 +60,7 @@ from siss_tpu_torch.diffusion.sd_pipeline import StableDiffusionPipeline, sd_noi
 from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
 from siss_tpu_torch.metrics.kmeans_mem import KMeansMemClassifier
 from siss_tpu_torch.metrics.sscd import SSCDEvaluator
-from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, rank_rows
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, rank_rows, shard_module
 from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig, UNet2DConditionConfig,
                                    build_clip_text, build_unet_cond, build_vae,
                                    load_clip_tokenizer)
@@ -140,6 +140,7 @@ class DeleteSD(Task):
             self._load_weights(sub, model)
         for tower in (vae, text):
             tower.requires_grad_(False).eval()
+        sharding = shard_module(unet, self.mesh)  # siss_tpu/tasks/delete_sd.py:123
         self.synchronize()
         self.setup_seconds["models"] = time.perf_counter() - t0
 
@@ -174,7 +175,7 @@ class DeleteSD(Task):
         accum = int(cfg.gradient_accumulation_steps)
         opt, lr_schedule = build_optimizer(self._optimizer_cfg(), unet.parameters(),
                                            str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
-                                           training_steps)
+                                           training_steps, sharding=sharding)
         step_cfg = DeletionStepConfig(
             loss_fn=str(cfg.deletion.loss_fn),
             loss_params=tuple(sorted(to_dict(cfg.deletion.get("loss_params") or {}).items())),
@@ -194,7 +195,8 @@ class DeleteSD(Task):
             fused_siss=bool(cfg.deletion.get("fused_siss", True)),
         )
         step_fn = build_deletion_train_step(cond_unet_eps_apply, schedule, step_cfg)
-        state = TrainState.create(unet, opt, lr_schedule, use_ema=step_cfg.use_ema)
+        state = TrainState.create(unet, opt, lr_schedule, use_ema=step_cfg.use_ema,
+                                  sharding=sharding)
         random_flip = bool(cfg.get("random_flip"))
         sf = float(vae_cfg.scaling_factor)
 

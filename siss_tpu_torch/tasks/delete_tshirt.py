@@ -36,7 +36,7 @@ from siss_tpu_torch.diffusion.sde import VPSDE
 from siss_tpu_torch.evaluate import Evaluator
 from siss_tpu_torch.metrics import (InceptionScore, LikelihoodEvaluator, MembershipLoss,
                                     TShirtClassifier)
-from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, shard_module
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, unet_eps_apply)
@@ -65,11 +65,12 @@ class DeleteTShirt(Task):
         # The pretrained start: the bundle's subfolder (unet_ema by default).
         if cfg.get("checkpoint_path"):
             self.load_bundle_unet(model, str(cfg.checkpoint_path))
+        sharding = shard_module(model, self.mesh)  # siss_tpu/tasks/delete_tshirt.py:59
 
         training_steps = int(cfg.training_steps)
         opt, lr_schedule = build_optimizer(cfg.optimizer, model.parameters(),
                                            str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
-                                           training_steps)
+                                           training_steps, sharding=sharding)
         step_cfg = DeletionStepConfig(
             loss_fn=str(cfg.deletion.loss_fn),
             loss_params=tuple(sorted(to_dict(cfg.deletion.get("loss_params") or {}).items())),
@@ -86,7 +87,8 @@ class DeleteTShirt(Task):
             fused_siss=bool(cfg.deletion.get("fused_siss", True)),
         )
         step_fn = build_deletion_train_step(unet_eps_apply, schedule, step_cfg)
-        state = TrainState.create(model, opt, lr_schedule, use_ema=step_cfg.use_ema)
+        state = TrainState.create(model, opt, lr_schedule, use_ema=step_cfg.use_ema,
+                                  sharding=sharding)
 
         accum = step_cfg.grad_accum_steps
         bs = int(cfg.train_batch_size)

@@ -16,7 +16,7 @@ import torch
 
 from siss_tpu_torch.data import BatchLoader, InfiniteSampler
 from siss_tpu_torch.evaluate import Evaluator
-from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, rank_rows
+from siss_tpu_torch.parallel import make_rank_sampler, process_batch_slice, rank_rows, shard_module
 from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import TrainState, build_optimizer, build_pretrain_step, unet_eps_apply
 from siss_tpu_torch.utils import CheckpointManager, PreemptionGuard
@@ -30,15 +30,16 @@ class TrainUnconditional(Task):
 
         dataset = self.build_dataset(cfg.dataset)
         model, ucfg = self.build_unet()
+        sharding = shard_module(model, self.mesh)  # siss_tpu/tasks/train_unconditional.py:44
         schedule = self.build_schedule()
 
         bs = int(cfg.train_batch_size)
         total_steps = int(cfg.num_epochs) * max(len(dataset) // bs, 1)
         opt, lr_schedule = build_optimizer(cfg.optimizer, model.parameters(),
                                            str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
-                                           total_steps)
+                                           total_steps, sharding=sharding)
         use_ema = bool(cfg.ema.use_ema)
-        state = TrainState.create(model, opt, lr_schedule, use_ema=use_ema)
+        state = TrainState.create(model, opt, lr_schedule, use_ema=use_ema, sharding=sharding)
         step_fn = build_pretrain_step(
             unet_eps_apply, schedule, prediction_type=str(schedule.prediction_type),
             ema_inv_gamma=float(cfg.ema.ema_inv_gamma), ema_power=float(cfg.ema.ema_power),

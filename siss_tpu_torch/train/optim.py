@@ -15,10 +15,13 @@ optax chain (``Adafactor`` below).
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Any, Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from siss_tpu_torch.parallel.multihost import all_reduce_
 
 Schedule = Callable[[int], float]
 
@@ -134,36 +137,70 @@ class Adafactor(torch.optim.Optimizer):
     5. with ``momentum``, its EMA (not debiased);
     6. with ``weight_decay``, + lr·wd·p (AdamW's decay, outside the EMA);
     7. p −= the result.
+
+    With a ``sharding`` (``parallel.fsdp``), a parameter split over the
+    ``fsdp`` ranks is this rank's block of it: ``factored_dims`` reads its
+    whole shape, and each mean over the split dimension, the update's RMS
+    and the parameter's RMS are sums of the ranks' partial sums. Those are
+    all-reduced in two rounds for all split parameters at once (the
+    factored means and the parameter's RMS, then the update's RMS).
     """
 
     def __init__(self, params, lr: float, decay_rate: float = 0.8, eps: float = 1e-30,
                  momentum: Optional[float] = None, weight_decay: float = 0.0,
-                 multiply_by_parameter_scale: bool = False):
+                 multiply_by_parameter_scale: bool = False, sharding=None):
         super().__init__(params, dict(lr=lr, decay_rate=decay_rate, eps=eps, momentum=momentum,
                                       weight_decay=weight_decay,
                                       multiply_by_parameter_scale=multiply_by_parameter_scale))
+        self.sharding = sharding
+
+    def _init_state(self, p: torch.Tensor, dims, momentum) -> dict:
+        st = self.state[p]
+        if not st:
+            st["step"] = 0
+            if dims is None:
+                st["v"] = torch.zeros_like(p)
+            else:
+                st["v_row"] = torch.zeros_like(p.mean(dims[1]))
+                st["v_col"] = torch.zeros_like(p.mean(dims[0]))
+            if momentum is not None:
+                st["ema"] = torch.zeros_like(p)
+        return st
+
+    def _apply(self, p: torch.Tensor, u: torch.Tensor, u_rms: torch.Tensor,
+               p_rms: Optional[torch.Tensor], group: dict) -> None:
+        """Steps 2–7 on the update ``u`` of RMS ``u_rms``, ``p_rms`` the
+        parameter's RMS before the update."""
+        lr, momentum, st = group["lr"], group["momentum"], self.state[p]
+        u = u / torch.clamp(u_rms, min=1.0)
+        if group["multiply_by_parameter_scale"]:
+            u = u * torch.where(p_rms <= 1e-3, torch.full_like(p_rms, 1e-3), p_rms)
+        u = lr * u
+        if momentum is not None:
+            u = st["ema"] = (1.0 - momentum) * u + momentum * st["ema"]
+        if group["weight_decay"]:
+            u = u + lr * group["weight_decay"] * p
+        p.sub_(u.to(p.dtype))
+        st["step"] += 1
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            lr, eps, momentum = group["lr"], group["eps"], group["momentum"]
+            eps, scale = group["eps"], group["multiply_by_parameter_scale"]
+            split = []
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad.float()
-                st = self.state[p]
-                dims = factored_dims(p.shape)
-                if not st:
-                    st["step"] = 0
-                    if dims is None:
-                        st["v"] = torch.zeros_like(p)
-                    else:
-                        st["v_row"] = torch.zeros_like(p.mean(dims[1]))
-                        st["v_col"] = torch.zeros_like(p.mean(dims[0]))
-                    if momentum is not None:
-                        st["ema"] = torch.zeros_like(p)
+                dim, shape = (None, p.shape) if self.sharding is None else self.sharding.layout(p)
+                dims = factored_dims(shape)
+                st = self._init_state(p, dims, group["momentum"])
                 t = torch.tensor(st["step"] + 1, dtype=torch.float32)
                 decay = float(1.0 - t ** -group["decay_rate"])
+                g = p.grad.float()
+                if dim is not None:
+                    split.append(SimpleNamespace(p=p, g=g, st=st, dim=dim, shape=shape,
+                                                 dims=dims, decay=decay))
+                    continue
                 g2 = g * g + eps
                 if dims is None:
                     st["v"] = decay * st["v"] + (1.0 - decay) * g2
@@ -175,17 +212,70 @@ class Adafactor(torch.optim.Optimizer):
                     row_mean = st["v_row"].mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
                     row = (st["v_row"] / row_mean) ** -0.5
                     u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
-                u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
-                if group["multiply_by_parameter_scale"]:
-                    rms = p.float().square().mean().sqrt()
-                    u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
-                u = lr * u
-                if momentum is not None:
-                    u = st["ema"] = (1.0 - momentum) * u + momentum * st["ema"]
-                if group["weight_decay"]:
-                    u = u + lr * group["weight_decay"] * p
-                p.sub_(u.to(p.dtype))
-                st["step"] += 1
+                p_rms = p.float().square().mean().sqrt() if scale else None
+                self._apply(p, u, u.square().mean().sqrt(), p_rms, group)
+            if split:
+                self._step_split(split, group)
+
+    def _step_split(self, recs, group: dict) -> None:
+        """``step`` for the split parameters: local partial sums, one
+        all-reduce of all of them, the updates, one all-reduce of their
+        squared sums, the rest."""
+        eps, scale = group["eps"], group["multiply_by_parameter_scale"]
+        fsdp_group = self.sharding.mesh.fsdp_group
+        sums = []
+        for r in recs:
+            g2 = r.g * r.g + eps
+            if r.dims is None:
+                r.st["v"] = r.decay * r.st["v"] + (1.0 - r.decay) * g2
+                r.u = r.g * r.st["v"] ** -0.5
+            else:
+                d1, d0 = r.dims
+                r.row = g2.sum(d0) if r.dim == d0 else g2.mean(d0)
+                r.col = g2.sum(d1) if r.dim == d1 else g2.mean(d1)
+                sums += [r.row] if r.dim == d0 else [r.col] if r.dim == d1 else []
+                if r.dim == d1:  # v_row is split along d1, whole along the rest
+                    r.v_row = r.decay * r.st["v_row"] + (1.0 - r.decay) * r.row
+                    r.row_sum = r.v_row.sum(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    sums.append(r.row_sum)
+            if scale:
+                r.p_sq = r.p.float().square().sum()
+                sums.append(r.p_sq)
+        all_reduce_(sums, group=fsdp_group)
+        for r in recs:
+            if r.dims is not None:
+                d1, d0 = r.dims
+                row_dim = d1 - 1 if d1 > d0 else d1
+                if r.dim == d1:
+                    r.st["v_row"] = r.v_row
+                    row_mean = r.row_sum / r.shape[d1]
+                    col = r.col / r.shape[d1]
+                else:
+                    row = r.row / r.shape[d0] if r.dim == d0 else r.row
+                    r.st["v_row"] = r.decay * r.st["v_row"] + (1.0 - r.decay) * row
+                    row_mean = r.st["v_row"].mean(row_dim, keepdim=True)
+                    col = r.col
+                r.st["v_col"] = r.decay * r.st["v_col"] + (1.0 - r.decay) * col
+                row = (r.st["v_row"] / row_mean) ** -0.5
+                r.u = r.g * row.unsqueeze(d0) * (r.st["v_col"] ** -0.5).unsqueeze(d1)
+            r.u_sq = r.u.square().sum()
+        all_reduce_([r.u_sq for r in recs], group=fsdp_group)
+        for r in recs:
+            n = math.prod(r.shape)
+            p_rms = (r.p_sq / n).sqrt() if scale else None
+            self._apply(r.p, r.u, (r.u_sq / n).sqrt(), p_rms, group)
+
+
+def state_split_dim(key: str, state: torch.Tensor, dim: int, shape) -> Optional[int]:
+    """The dimension along which optimizer state ``key`` of a parameter of
+    whole shape ``shape``, split along ``dim``, is split (None: whole on
+    every rank). Adafactor's factored rows and columns drop one of the
+    factored dims: they are whole when that is the split one."""
+    if key in ("v_row", "v_col"):
+        d1, d0 = factored_dims(shape)
+        dropped = d0 if key == "v_row" else d1
+        return None if dim == dropped else dim - (dim > dropped)
+    return dim if state.ndim == len(shape) else None
 
 
 def _dtype(name) -> Optional[torch.dtype]:
@@ -194,13 +284,16 @@ def _dtype(name) -> Optional[torch.dtype]:
 
 def build_optimizer(cfg: Any, params: Iterable[torch.nn.Parameter],
                     lr_scheduler: str = "constant", warmup_steps: int = 0,
-                    total_steps: Optional[int] = None) -> Tuple[torch.optim.Optimizer, Schedule]:
+                    total_steps: Optional[int] = None,
+                    sharding=None) -> Tuple[torch.optim.Optimizer, Schedule]:
     """``cfg``: mapping with torch.optim.AdamW's keys (lr, betas,
     weight_decay, eps), an optional ``_target_`` and, for AdamW/Adam,
     optional ``mu_dtype``/``nu_dtype``; for ``adafactor``, optional
     ``decay_rate``, ``eps`` (1e-30 unless set), ``momentum`` and
-    ``multiply_by_parameter_scale``. Returns the optimizer and its LR
-    schedule."""
+    ``multiply_by_parameter_scale``. ``sharding``: the ``parallel.fsdp``
+    split of ``params``, which Adafactor reads (the other optimizers are
+    elementwise and run on the blocks as they are). Returns the optimizer
+    and its LR schedule."""
     target = str(cfg.get("_target_", "torch.optim.AdamW"))
     lr = float(cfg["lr"])
     betas = tuple(float(b) for b in cfg.get("betas", [0.9, 0.999]))
@@ -229,7 +322,8 @@ def build_optimizer(cfg: Any, params: Iterable[torch.nn.Parameter],
                         eps=float(cfg["eps"]) if "eps" in cfg else 1e-30,
                         momentum=None if momentum is None else float(momentum), weight_decay=wd,
                         multiply_by_parameter_scale=bool(cfg.get("multiply_by_parameter_scale",
-                                                                 False)))
+                                                                 False)),
+                        sharding=sharding)
     else:
         raise ValueError(f"Unsupported optimizer target {target!r}")
     return opt, sched

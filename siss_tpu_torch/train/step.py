@@ -52,6 +52,17 @@ the one-process statistics of the global batch. The model is not wrapped in
 expects one backward a forward, while the step pulls with
 ``autograd.grad`` twice. The surgery, the optimizer and the EMA then run on
 the same values on every rank, and the ranks' parameters stay equal.
+
+The ``fsdp`` axis (``parallel.fsdp``; the JAX package's ``shard_params_fsdp``
+placement, whose collectives XLA inserts): the state's ``sharding`` splits
+the large parameters, their optimizer state, the EMA and the two gradient
+accumulators over the ``fsdp`` ranks. The step gathers the whole parameters
+once, before the first microbatch, and keeps them through every pull;
+reduce-scatters each microbatch's two pulled trees into the block-sized
+accumulators and sums those over ``data`` after the last microbatch; and
+forms ‖g_x‖², ‖g_a‖², ⟨g_x, g_a⟩ and the clip's norm from partial sums over
+the blocks, each whole leaf counted once (``Sharding.sum_leaves``). The
+combine, the clip, the optimizer and the EMA run on the blocks.
 """
 
 from __future__ import annotations
@@ -72,7 +83,8 @@ from siss_tpu_torch.losses.deletion import (
 )
 from siss_tpu_torch.ops.batched import contiguous_norm_inputs
 from siss_tpu_torch.ops.siss import siss_weighted_sums
-from siss_tpu_torch.parallel import all_reduce_, all_reduce_mean, gather_rows, rank_rows, world_size
+from siss_tpu_torch.parallel import all_reduce_mean, gather_rows, rank_rows, world_size
+from siss_tpu_torch.parallel.fsdp import Sharding
 from siss_tpu_torch.train.ema import ema_update
 from siss_tpu_torch.train.state import TrainState
 
@@ -95,21 +107,24 @@ def cond_unet_eps_apply(model: torch.nn.Module, x: torch.Tensor, t: torch.Tensor
     return model(x.permute(0, 3, 1, 2), t, cond).permute(0, 2, 3, 1)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Global L2 norm of a list of tensors, accumulated in float32."""
-    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+def _squared_norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[L] each tensor's squared L2 norm, in float32."""
+    return torch.stack(torch._foreach_norm(list(tensors), 2, dtype=torch.float32)) ** 2
 
 
-def tree_dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Σ over the lists of ⟨a_i, b_i⟩, in float32."""
-    return torch.stack([torch.dot(x.float().reshape(-1), y.float().reshape(-1))
-                        for x, y in zip(a, b)]).sum()
+def global_norm(tensors: Sequence[torch.Tensor], sharding: Optional[Sharding] = None
+                ) -> torch.Tensor:
+    """Global L2 norm of a list of tensors, accumulated in float32; with a
+    ``sharding``, of the whole tree of which ``tensors`` are this rank's
+    leaves (collective)."""
+    squares = _squared_norms(tensors)
+    return (squares.sum() if sharding is None else sharding.sum_leaves(squares)).sqrt()
 
 
-def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float):
+def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float,
+                        sharding: Optional[Sharding] = None):
     """torch.nn.utils.clip_grad_norm_ semantics; returns (clipped, norm)."""
-    norm = global_norm(tensors)
+    norm = global_norm(tensors, sharding)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return [t * scale.to(t.dtype) for t in tensors], norm
 
@@ -219,22 +234,27 @@ class _Call(torch.nn.Module):
         return fn(self.model)
 
 
-def _cast_params(model: torch.nn.Module, dtype: torch.dtype):
-    """(copies of the model's fp32 params cast to ``dtype``, a ``call(fn)``
-    that runs ``fn(model)`` with the model computing from them). The
-    gradients are pulled with respect to the copies; a model that computes
-    in fp32 sees them upcast again, as flax promotes them."""
-    named = list(model.named_parameters())
-    cast = [p.detach().to(dtype).requires_grad_() if p.dtype == torch.float32 else p
-            for _, p in named]
+def _working_params(model: torch.nn.Module, sharding: Sharding, dtype: Optional[torch.dtype]):
+    """(the tensors the step pulls its gradients with respect to, a
+    ``call(fn)`` that runs ``fn(model)`` with the model computing from
+    them): the parameters themselves, or, when some are split over the
+    ``fsdp`` ranks or ``dtype`` casts them, the whole parameters gathered
+    (in ``dtype``; collective). A model that computes in fp32 sees cast
+    copies upcast again, as flax promotes them."""
+    params = list(model.parameters())
+    if dtype is None and not sharding.sharded:
+        return params, lambda fn: fn(model)
+    whole = sharding.gather(dtype=dtype)
+    leaves = [p if t.dtype == p.dtype and dim is None else t.requires_grad_()
+              for p, t, dim in zip(params, whole, sharding.dims)]
     compute = getattr(model, "dtype", torch.float32)
     swapped = {f"model.{name}": c if c.dtype == compute else c.to(p.dtype)
-               for (name, p), c in zip(named, cast)}
+               for name, p, c in zip(sharding.names, params, leaves)}
     wrapper = _Call(model)
 
     def call(fn):
         return torch.func.functional_call(wrapper, swapped, (fn,), strict=False)
-    return cast, call
+    return leaves, call
 
 
 def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
@@ -371,13 +391,11 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         per_mb = {k for k, v in dyn_scalars.items()
                   if getattr(v, "ndim", 0) >= 1 and v.shape[0] == A}
 
-        model = state.model
-        params = list(model.parameters())
-        grad_of, call = ((params, lambda fn: fn(model)) if cast_dtype is None
-                         else _cast_params(model, cast_dtype))
-        g_x_acc = [torch.zeros_like(p, dtype=acc_dtype) for p in params]
-        g_a_acc = None if cfg.is_scalar_path else [torch.zeros_like(p, dtype=acc_dtype)
-                                                   for p in params]
+        model, sharding = state.model, state.sharding
+        # The whole parameters (gathered once, a step) live through every pull.
+        grad_of, call = _working_params(model, sharding, cast_dtype)
+        g_x_acc = sharding.zeros(acc_dtype)
+        g_a_acc = None if cfg.is_scalar_path else sharding.zeros(acc_dtype)
         stats_mb: Dict[str, List[torch.Tensor]] = {}
         for a in range(A):
             cond = None if cond_all is None else cond_all[a]
@@ -386,16 +404,16 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             with contiguous_norm_inputs(model, cfg.batched_dual_backward):
                 g_x, g_a, stats = call(lambda m: micro_grads(grad_of, m, keep_all[a],
                                                              forget_all[a], cond, dr, dyn, mb))
-            torch._foreach_add_(g_x_acc, [g.to(acc_dtype) for g in g_x])
+            sharding.scatter_add_(g_x, g_x_acc)
             if g_a is not None:
-                torch._foreach_add_(g_a_acc, [g.to(acc_dtype) for g in g_a])
+                sharding.scatter_add_(g_a, g_a_acc)
             del g_x, g_a
             for k, v in stats.items():
                 stats_mb.setdefault(k, []).append(v)
         del grad_of, call
-        # Sum over the ranks (one all-reduce of each tree), then the mean over
-        # microbatches (Accelerate divides by accumulation steps).
-        all_reduce_(g_x_acc)
+        # Sum over the data ranks (one all-reduce of each tree), then the mean
+        # over microbatches (Accelerate divides by accumulation steps).
+        sharding.sum_over_data_(g_x_acc)
         torch._foreach_div_(g_x_acc, A)
 
         # Every rank's per-sample values ([stat, A, mb]), in one all-reduce.
@@ -406,31 +424,36 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             metrics.update(_tensor_stats(v, k))
 
         if cfg.is_scalar_path:
-            final, pre_clip_norm = clip_by_global_norm(g_x_acc, cfg.max_grad_norm)
+            final, pre_clip_norm = clip_by_global_norm(g_x_acc, cfg.max_grad_norm, sharding)
         else:
-            all_reduce_(g_a_acc)
+            sharding.sum_over_data_(g_a_acc)
             torch._foreach_div_(g_a_acc, A)
-            final, pre_clip_norm = _surgery(cfg, g_x_acc, g_a_acc, metrics)
+            final, pre_clip_norm = _surgery(cfg, sharding, g_x_acc, g_a_acc, metrics)
         metrics["gradient/pre_clip_norm"] = pre_clip_norm
-        _apply_update(state, params, final, cfg.ema_inv_gamma, cfg.ema_power, cfg.ema_max_decay)
+        _apply_update(state, final, cfg.ema_inv_gamma, cfg.ema_power, cfg.ema_max_decay)
         return state, metrics
 
     return step
 
 
-def _surgery(cfg: DeletionStepConfig, g_x: List[torch.Tensor], g_a: List[torch.Tensor],
-             metrics: Dict[str, torch.Tensor]):
+def _surgery(cfg: DeletionStepConfig, sharding: Sharding, g_x: List[torch.Tensor],
+             g_a: List[torch.Tensor], metrics: Dict[str, torch.Tensor]):
     """clip(g_x − s·g_a), in fp32: written into the g_x buffers when they
     are fp32, else into new fp32 ones, a leaf at a time (the JAX step
     combines bf16 accumulators in fp32 too); logs ‖g_x‖, ‖g_a‖ and s.
-    Returns (final gradient, its pre-clip norm)."""
-    norm_x = global_norm(g_x)
-    norm_a = global_norm(g_a)
+    ‖g_x‖², ‖g_a‖² (and EraseDiff's ⟨g_x, g_a⟩) are summed over the tree
+    in one reduction, the clip's norm in a second. Returns (final gradient,
+    its pre-clip norm)."""
+    parts = [_squared_norms(g_x), _squared_norms(g_a)]
+    if cfg.loss_fn == "erasediff":
+        parts.append(torch.stack([torch.dot(x.float().reshape(-1), y.float().reshape(-1))
+                                  for x, y in zip(g_x, g_a)]))
+    sums = sharding.sum_leaves(torch.stack(parts))
+    norm_x, norm_a = sums[0].sqrt(), sums[1].sqrt()
     if cfg.loss_fn == "erasediff":
         # EraseDiff's projected-gradient step.
-        norm_a_sq = ((torch.stack(torch._foreach_norm(g_a, 2, dtype=torch.float32)) ** 2).sum()
-                     if cfg.fused_surgery else norm_a ** 2)
-        scaling = -torch.clamp(cfg.eta - tree_dot(g_x, g_a) / norm_a_sq, min=0.0)
+        norm_a_sq = sums[1] if cfg.fused_surgery else norm_a ** 2
+        scaling = -torch.clamp(cfg.eta - sums[2] / norm_a_sq, min=0.0)
     else:
         scaling = cfg.scaling_norm / norm_a
     if cfg.guard_inf_scaling:
@@ -445,7 +468,7 @@ def _surgery(cfg: DeletionStepConfig, g_x: List[torch.Tensor], g_a: List[torch.T
         for i in range(len(g_x)):
             g_x[i] = g_x[i].float() - scaling * g_a[i].float()
             g_a[i] = None
-    pre_clip_norm = global_norm(g_x)
+    pre_clip_norm = global_norm(g_x, sharding)
     torch._foreach_mul_(g_x, torch.clamp(cfg.max_grad_norm / (pre_clip_norm + 1e-6), max=1.0))
     metrics["gradient/norm_loss_x"] = norm_x
     metrics["gradient/norm_loss_a"] = norm_a
@@ -453,10 +476,12 @@ def _surgery(cfg: DeletionStepConfig, g_x: List[torch.Tensor], g_a: List[torch.T
     return g_x, pre_clip_norm
 
 
-def _apply_update(state: TrainState, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
-                  ema_inv_gamma: float, ema_power: float, ema_max_decay: float) -> None:
+def _apply_update(state: TrainState, grads: Sequence[torch.Tensor], ema_inv_gamma: float,
+                  ema_power: float, ema_max_decay: float) -> None:
     """The optimizer update with ``schedule(state.step)`` as its LR, then
-    the EMA update and the step count, all in place."""
+    the EMA update and the step count, all in place (on this rank's blocks
+    under an ``fsdp`` axis)."""
+    params = state.sharding.params
     for p, g in zip(params, grads):
         p.grad = g.to(p.dtype)
     lr = state.lr_schedule(state.step)
@@ -486,8 +511,10 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
 
     Under a process group of R ranks ``batch`` is this rank's block of the
     global batch and ``draws`` are the global batch's, of which it keeps its
-    rows; each rank's mean loss counts 1/R and the gradients are
-    all-reduced (SUM) before the clip."""
+    rows; each rank's mean loss counts 1/R and the gradients are summed over
+    the ranks before the clip: all-reduced, or under an ``fsdp`` axis
+    reduce-scattered into this rank's blocks and clipped by the partial-sum
+    norm, as the unlearning step does."""
     if prediction_type not in ("epsilon", "sample"):
         raise ValueError(prediction_type)
     n_ranks = world_size()
@@ -503,15 +530,22 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
                      "t": torch.randint(0, schedule.num_train_timesteps, (B,),
                                         generator=generator, device=batch.device)}
         noise, t = rank_rows(draws["noise"]), rank_rows(draws["t"])
-        pred = eps_apply(state.model, q_sample(schedule, batch, noise, t), t, None)
-        if prediction_type == "epsilon":
-            loss = ((pred - noise) ** 2).mean()
-        else:
-            loss = (snr_weights(schedule, t, pred) * (pred - batch) ** 2).mean()
-        params = list(state.model.parameters())
-        grads = all_reduce_(list(torch.autograd.grad(loss / n_ranks, params)))
-        grads, grad_norm = clip_by_global_norm(grads, max_grad_norm)
-        _apply_update(state, params, grads, ema_inv_gamma, ema_power, ema_max_decay)
+        sharding = state.sharding
+        grad_of, call = _working_params(state.model, sharding, None)
+
+        def loss_and_grads(model):
+            pred = eps_apply(model, q_sample(schedule, batch, noise, t), t, None)
+            if prediction_type == "epsilon":
+                loss = ((pred - noise) ** 2).mean()
+            else:
+                loss = (snr_weights(schedule, t, pred) * (pred - batch) ** 2).mean()
+            return loss, torch.autograd.grad(loss / n_ranks, grad_of)
+
+        loss, grads = call(loss_and_grads)
+        del grad_of, call
+        grads = sharding.reduce(grads)
+        grads, grad_norm = clip_by_global_norm(grads, max_grad_norm, sharding)
+        _apply_update(state, grads, ema_inv_gamma, ema_power, ema_max_decay)
         return state, {"loss": all_reduce_mean(loss), "gradient/pre_clip_norm": grad_norm}
 
     return step

@@ -8,8 +8,12 @@ never leaves a bundle that ``latest()`` would pick. Each item is one
 ``torch.save`` file, ``<item>/item.pt``, of plain containers of CPU tensors
 (state dicts), and loads back with ``weights_only=True``.
 
-Under a process group every rank calls ``save_bundle`` and ``wait``; rank 0
-writes and the others wait for it at a barrier. Every rank restores.
+Under a process group every rank builds the bundle (``TrainState.state_dict``
+gathers the blocks of a state split over ``fsdp``: a gather on rank 0 alone
+would wait forever for the others), calls ``save_bundle`` and ``wait``; rank
+0 writes and the others wait for it at a barrier. The bundle has the
+one-process format whatever the mesh. Every rank restores: it reads the
+whole file and keeps its blocks (``TrainState.load_state_dict``).
 """
 
 from __future__ import annotations

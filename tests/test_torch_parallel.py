@@ -112,8 +112,13 @@ def test_mesh_resolve_matches_jax(data, fsdp, tensor, n):
 
 @pytest.mark.parametrize("mesh,item", [(MeshConfig(fsdp=2), "12b"), (MeshConfig(tensor=2), "12c")])
 def test_unported_axes_raise(mesh, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        resolve_mesh(mesh, 4)
+    """The tensor axis (item 12c) raises; the fsdp axis (item 12b, ported)
+    resolves."""
+    if item == "12b":
+        assert resolve_mesh(mesh, 4) == MeshConfig(2, 2, 1)
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            resolve_mesh(mesh, 4)
     assert resolve_mesh(MeshConfig(), 4) == MeshConfig(4, 1, 1)
 
 

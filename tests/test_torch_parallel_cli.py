@@ -12,7 +12,9 @@ the t-shirt forget stripes too), while celeb and SD give every rank the
 same forget rows (their forget stream is not striped, as in JAX); the
 t-shirt run logs a one-process run's keys, and ``-m siss_tpu_torch.main``
 on two ranks resumes it from its checkpoint; an SD batch the ranks do not
-divide raises.
+divide raises. With ``mesh.fsdp=2`` (a t-shirt UNet at 128 channels, wide
+enough to split), the ranks print the mesh, save one checkpoint of whole
+tensors that one process loads, and log a one-process run's keys.
 """
 
 import itertools
@@ -31,6 +33,8 @@ import torch
 import torch_parity  # noqa: F401  (torch threads, no TF32)
 from siss_tpu_torch import main as cli
 from siss_tpu_torch.data import InfiniteSampler, RepeatedSampler
+from siss_tpu_torch.models import UNet2D, UNet2DConfig
+from siss_tpu_torch.utils import CheckpointManager
 from test_torch_celeb import celeb_args, write_folder
 from test_torch_sd_task import N_IMAGES, TINY as SD_TINY, sd_root  # noqa: F401  (fixture)
 from test_torch_tasks import TINY_UNET, delete_args, npz, pretrain_args  # noqa: F401  (fixture)
@@ -38,6 +42,10 @@ from test_torch_tasks import TINY_UNET, delete_args, npz, pretrain_args  # noqa:
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = str(Path(__file__).resolve().parent / "torch_parallel_cli_worker.py")
 TIMEOUT_S = 240
+#: The t-shirt UNet of TINY_UNET at 28² (``configs/train_tshirt_mnist.yaml``).
+TSHIRT_28 = dict(sample_size=28, in_channels=1, out_channels=1,
+                 down_block_types=("DownBlock2D",) * 2, up_block_types=("UpBlock2D",) * 2,
+                 norm_num_groups=8)
 
 
 def launch(*args, **env_extra):
@@ -209,3 +217,30 @@ def test_delete_sd_on_two_ranks(sd_root, tmp_path):  # noqa: F811
     rc, out = launch(WORKER, str(tmp_path / "record"), *args, "train_batch_size=1",
                      f"output_dir={tmp_path / 'odd'}")
     assert rc != 0 and "global batch 1 not divisible by 2 processes" in out
+
+
+def test_delete_tshirt_fsdp_on_two_ranks(npz, tmp_path):
+    wide = ["unet.block_out_channels=[128,128]", "checkpoint_path=null"]
+    args = delete_args(npz, tmp_path / "out", "unused", *wide, "mesh.fsdp=2")
+    (tmp_path / "record").mkdir()
+    rc, out = launch(WORKER, str(tmp_path / "record"), *args)
+    assert rc == 0, out[-4000:]
+    assert out.count("mesh=data 1 x fsdp 2") == 2
+    records = [torch.load(tmp_path / "record" / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    assert_equal_params(records)
+    run = only_run(tmp_path / "out")
+    assert checkpoints(run) == ["checkpoint-3"]
+    assert sorted(r["_step"] for r in rows_of(run) if "loss_x/mean" in r) == [1, 2, 3]
+    # the bundle is whole: one process loads the UNet and the optimizer state
+    mgr = CheckpointManager(str(run))
+    unet = UNet2D(UNet2DConfig(**{**TSHIRT_28, "block_out_channels": (128, 128)}))
+    unet.load_state_dict(mgr.restore_item("latest", "unet"))
+    for k, v in unet.state_dict().items():
+        assert torch.equal(v, records[0]["params"][k]), k
+    state = mgr.restore_item("latest", "state")
+    shapes = [p.shape for p in unet.parameters()]
+    for i, st in state["optimizer"]["state"].items():
+        assert st["exp_avg"].shape == st["exp_avg_sq"].shape == shapes[i]
+    (task,) = cli.main(delete_args(npz, tmp_path / "one", "unused", *wide))
+    keys = [set().union(*map(set, rows_of(r))) for r in (task.cfg.output_dir, run)]
+    assert keys[0] == keys[1]

@@ -228,8 +228,8 @@ def test_preemption_saves_and_stops(npz, base_run, tmp_path):
 
 def test_unported_options_raise(npz, base_run, tmp_path):
     # The likelihood metric is ported (tests/test_torch_tshirt_metrics.py).
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(delete_args(npz, tmp_path, base_run, "mesh.fsdp=2"))
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        cli.main(delete_args(npz, tmp_path, base_run, "mesh.tensor=2"))
 
 
 def test_checkpoint_rotation_latest_and_async(tmp_path):

@@ -6,8 +6,8 @@ record of what the rank did, for tests/test_torch_parallel_cli.py:
 
 It runs ``siss_tpu_torch.main.main`` on the arguments and writes
 ``<record dir>/rank<r>.pt``: the indices each data loader's sampler gave (in
-the order the task built its loaders) and the model's parameters at its
-last checkpoint bundle, which every rank builds. With ``STOP_RANK=<r>`` in
+the order the task built its loaders) and the model's whole parameters at
+its last checkpoint bundle, which every rank builds. With ``STOP_RANK=<r>`` in
 the environment, rank r starts with its preemption stop already requested,
 as if a signal had reached it alone.
 """
@@ -53,8 +53,9 @@ def main() -> None:
     bundle = base.Task.bundle
 
     def recording_bundle(state, generator):
-        RECORD["params"] = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
-        return bundle(state, generator)
+        out = bundle(state, generator)
+        RECORD["params"] = {k: v.detach().clone() for k, v in out["unet"].items()}
+        return out
 
     loader.BatchLoader.__init__ = recording_init
     if os.environ.get("STOP_RANK") == os.environ["RANK"]:
