@@ -116,7 +116,7 @@ prints no result):
    (``configs/delete_sd.yaml``: the sd_v1 UNet, the SD-1 VAE and the CLIP
    ViT-L/14 text tower, resolution 512, bs 1 × 16, bf16, the latent cache
    on ``auto``, ``random_flip``, a validation every step: CFG DDIM at
-   guidance 7.5 with noise norms, its 50 steps cut to 25) with
+   guidance 7.5 with noise norms, its 50 steps cut to 15) with
    ``attention_impl=flash``, 1 step and ``eval_batches=1``, on 16 random 512² PNGs under
    ``build/chip_smoke_sd/`` with their side files, two prompt files and a
    synthetic byte-level CLIP vocabulary (random weights: the pretrained
@@ -143,7 +143,7 @@ prints no result):
    exactly (the batched pull launches each flash backward kernel once a
    site, the seeds folded into its batch). (a) ``--config-name=delete_sd``
    on the Adafactor fast path the config documents (bs 2 × 8, bf16
-   accumulators, no recomputation), ``attention_impl=flash``, 2 steps,
+   accumulators, no recomputation), ``attention_impl=flash``, 1 step,
    with ``metrics.fraction_deletion``, ``sscd`` and ``clip_iqa`` on
    synthetic artifacts written under ``build/chip_smoke_sd/metric_files``
    (k-means centers, a TorchScript embedder, a random full-width ViT-L/14
@@ -155,15 +155,14 @@ prints no result):
    with ``noise_offset`` and ``input_perturbation``, launching no SISS
    kernel.
 9. Data parallelism (``siss_tpu_torch.parallel``) on phase 7's celeb step
-   at full width, 16 × 4, 2 steps from one global batch and its draws:
+   at full width, 16 × 4, 1 step from one global batch and its draws:
    (a) one process without a group, in bf16 and in fp32 (TF32 off), θ
-   after each step and the norms ``gradient/norm_loss_x``,
+   after the step and the norms ``gradient/norm_loss_x``,
    ``gradient/norm_loss_a``, ``gradient/pre_clip_norm`` kept on the host;
-   (b) the bf16 steps under an NCCL group of world size 1, which must give
+   (b) the bf16 step under an NCCL group of world size 1, which must give
    (a)'s bf16 parameters and norms bit for bit; (c) after printing the
    card's compute mode (an exclusive mode fails the phase), two ranks
-   sharing the card over gloo for the first step, each on its 8 rows of
-   every microbatch:
+   sharing the card over gloo, each on its 8 rows of every microbatch:
    their parameters equal bit for bit after each step, 4 reduce and 8 SISS
    backward launches a step on each, and against (a)'s fp32 steps the
    largest and RMS errors of Δθ and the norms' largest and RMS relative
@@ -184,9 +183,28 @@ prints no result):
    printed; (f) (d) with ``mesh.fsdp=2``, run beside (d): each rank prints the mesh, one
    run directory, log and checkpoint, the logged keys equal (d)'s, and one
    process loads the bundle whole (the ``unet`` item strictly, the
-   ``state`` item into a TrainState). cuDNN is set deterministic for the
-   phase. NCCL across several cards is not run: the machine has one. Each
-   phase's seconds are printed after it.
+   ``state`` item into a TrainState); (g) the tensor axis: the celeb step
+   cut to microbatch 2 × 2 accumulation steps, 2 steps from (a)'s seed, on
+   a ``data=1 × tensor=2`` mesh over gloo (each rank runs its block of
+   every resnet's and attention block's channels, with an all-reduce of
+   each one's partial output): θ and the EMA gathered after each step and
+   every whole parameter equal bit for bit on the two ranks, 2 reduce and
+   4 SISS backward launches a step on each, errors against one process's
+   fp32 steps on the same cut within (c)'s rule, held bytes exactly one
+   process's less half of the split parameters' (parameters 256,333,836),
+   step and activation all-reduce seconds and peak memory printed; (h)
+   phase 8's sd_v1 step with flash at microbatch 1 × 2, 2 steps, on
+   ``data=1 × tensor=2``, from one seed, against one process's bf16 and
+   fp32 steps on the same cut and draws: θ after the last step and every
+   whole parameter equal on the two ranks, equal norms, errors against
+   the fp32 steps within (c)'s rule, on each rank 20 flash forward, 40
+   dK/dV, 40 dQ, 2 reduce and 4 SISS backward launches a step (the flash
+   kernels at 4 local heads), 1,924,824,336 parameter bytes a rank,
+   seconds and peak memory printed; then the bf16 flash kernels at the local heads' shapes (1, 4,
+   4096, 40) and (1, 4, 1024, 80) against their plain versions as in phase
+   4. cuDNN is set deterministic for the phase. NCCL across several cards
+   is not run: the machine has one. Each phase's seconds are printed after
+   it.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
@@ -1293,8 +1311,9 @@ SD_WORK = ROOT / "build" / "chip_smoke_sd"
 # 700 s; PERF.md §4 names the cut).
 SD_IMAGES, SD_SIZE, SD_STEPS = 16, 512, 1
 # The shipped validation sampler takes 50 steps; cut to 25 since the whole
-# script reached ~600 s (PERF.md §4 names the cut).
-SD_INFERENCE_STEPS = 25
+# script reached ~600 s, to 15 to pay for phase 9(g)–(h) (PERF.md §4 names
+# the cuts).
+SD_INFERENCE_STEPS = 15
 SD_IMAGES_NAME = "sylvester_stallone"   # configs/delete_sd.yaml's images_name
 SD_STEP_KEYS = ("loss_x/mean", "importance_weight_x/mean", "gradient/scaling_factor",
                 "images_per_sec")
@@ -1503,11 +1522,12 @@ def phase_sd_task(torch, card):
 
 
 # Phase 8c(a): the SD task's Adafactor fast path (configs/delete_sd.yaml's
-# commented block) with the three SD metrics on, 2 steps.
+# commented block) with the three SD metrics on, 1 step (2 until phase
+# 9(g)–(h) took the script past 700 s; PERF.md §4 names the cut).
 SD_FAST_PATH = ("optimizer={_target_: adafactor, weight_decay: 1.0e-2}", "train_batch_size=2",
                 "gradient_accumulation_steps=8", "deletion.grad_accum_dtype=bfloat16",
                 "gradient_checkpointing=false")
-SD_FAST_STEPS = 2
+SD_FAST_STEPS = 1
 JAX_SD_TASK = ROOT / "siss_tpu" / "tasks" / "delete_sd.py"
 # Phase 8c(b): the least the memory mode must take off the SD step's peak.
 MEMORY_MODE_SAVING = 4 * 2**30
@@ -2033,7 +2053,7 @@ def phase_classifier(torch, card, base):
 
 # Phase 9: data parallelism on the celeb main path (phase 7's step).
 DP_WORK = ROOT / "build" / "chip_smoke_dp"
-DP_STEPS, DP_RANKS = 2, 2
+DP_STEPS, DP_RANKS = 1, 2   # the steps of (a), (b) and (e); PERF.md §4 lists the cuts
 DP_DATA_STEPS = 1   # 9(c)'s steps: one keeps the script within its time
 DP_NORMS = ("gradient/norm_loss_x", "gradient/norm_loss_a", "gradient/pre_clip_norm")
 # The CLI drives: the t-shirt unlearning task on two ranks from phase 6's
@@ -2043,36 +2063,63 @@ DP_CLI_STEPS = 2
 DP_CLI = (f"training_steps={DP_CLI_STEPS}", "sampling_steps=1000", "eval_images=64",
           "metrics.likelihood=null")
 HELD = ("params", "optimizer", "ema", "accumulators")
+# 9(g)–(h): the tensor axis at tensor 2 on two gloo ranks, global microbatch
+# × accumulation cut to TP_MB × TP_ACCUM (celeb; SD at microbatch 1): every
+# activation all-reduce is staged through the host by gloo.
+TP_ACCUM, TP_MB, TP_STEPS = 2, 2, 2
+# Parameter bytes a rank holds at tensor 2 (JAX's placement: 99,179,520 of
+# the celeb UNet's 113,673,219 elements split, 756,629,760 of sd_v1's
+# 859,520,964), and sd_v1's whole.
+TP_PARAM_BYTES = {"celeb": 256_333_836, "sd": 1_924_824_336}
+SD_PARAM_BYTES = 3_438_083_856
+TP_SD_PER_STEP = {"flash_fwd": 10 * TP_ACCUM, "flash_bwd_dkv": 20 * TP_ACCUM,
+                  "flash_bwd_dq": 20 * TP_ACCUM, "siss_reduce": TP_ACCUM, "siss_bwd": 2 * TP_ACCUM}
+# The local heads' flash shapes on the SD path at tensor 2.
+TP_FLASH_SHAPES = ((1, 4, 4096, 40), (1, 4, 1024, 80))
+# scripts/fsdp_memory.py's peaks a rank for the sd_v1 step (global
+# microbatch 2, no accumulation; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6),
+# printed beside 9(h)'s.
+FSDP_MEMORY_GIB = {"data=2": 22.89, "fsdp=2": 18.09}
 
 
-def dp_inputs(torch, device):
-    """The phase's global batch and each step's global draws, from one seed
-    on the card: every process makes the same ones."""
+def dp_inputs(torch, device, accum=None, mb=None, steps=DP_STEPS):
+    """The phase's global batch and ``steps`` steps' global draws, from one
+    seed on the card: every process makes the same ones. ``accum`` × ``mb``:
+    the celeb step's 4 × 16 unless given (9(g) cuts them)."""
     from siss_tpu_torch.profile_step import MAIN_ACCUM, MAIN_MB
     from siss_tpu_torch.train.step import draw_microbatch_randomness
 
+    accum, mb = accum or MAIN_ACCUM, mb or MAIN_MB
     gen = torch.Generator(device=device).manual_seed(9)
-    batch = {k: torch.randn(MAIN_ACCUM, MAIN_MB, 256, 256, 3, generator=gen, device=device)
+    batch = {k: torch.randn(accum, mb, 256, 256, 3, generator=gen, device=device)
              for k in ("all", "deletion")}
-    draws = [draw_microbatch_randomness(gen, MAIN_ACCUM, MAIN_MB, (256, 256, 3), 999, 1000, device)
-             for _ in range(DP_STEPS)]
+    draws = [draw_microbatch_randomness(gen, accum, mb, (256, 256, 3), 999, 1000, device)
+             for _ in range(steps)]
     return batch, draws
 
 
-def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS):
+def whole_digest(torch, sharding):
+    """Each whole (unsplit) parameter's bits summed as integers: equal on
+    two ranks exactly when those parameters are, up to a collision."""
+    return torch.stack([p.detach().reshape(-1).view(torch.int32).long().sum()
+                        for p, d in zip(sharding.params, sharding.dims) if d is None]).cpu()
+
+
+def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS, accum=None, mb=None):
     """DP_STEPS celeb steps (``make_main_path`` at ``dtype``, split over
-    ``mesh``'s fsdp ranks) on this rank's rows of the global batch: θ0, and
-    θ and the EMA after each step (whole, flat fp32 on the host), the three
-    norms, the synchronised step seconds, the launches, the peak memory and
-    the bytes this rank holds (parameters, optimizer state, EMA, the step's
-    two accumulators)."""
+    ``mesh``'s fsdp or tensor ranks) on this rank's rows of the global
+    batch (``dp_inputs``): θ0, and θ and the EMA after each step (whole,
+    flat fp32 on the host), the three norms, the synchronised step seconds,
+    the launches, the peak memory, the bytes this rank holds (parameters,
+    optimizer state, EMA, the step's two accumulators) and the digest of
+    its whole parameters."""
     from siss_tpu_torch.ops import launch_counts, reset_launch_counts
     from siss_tpu_torch.parallel import rank_rows
     from siss_tpu_torch.profile_step import make_main_path
 
     state, step, _, _ = make_main_path(device, dtype=dtype, mesh=mesh)
-    batch, draws = dp_inputs(torch, device)
-    batch = {k: rank_rows(v, 1).contiguous() for k, v in batch.items()}
+    batch, draws = dp_inputs(torch, device, accum, mb, steps)
+    batch = {k: rank_rows(v, 1, mesh).contiguous() for k, v in batch.items()}
     sharding = state.sharding
     acc_bytes = []
     zeros = sharding.zeros
@@ -2084,8 +2131,9 @@ def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS):
 
     sharding.zeros = recording_zeros
 
-    def flat(tensors):
-        whole = sharding.gather_along(tensors, sharding.dims)
+    def flat(tensors):   # not ``gather``, which 9(e) times as the step's
+        whole = sharding.gather_along(list(tensors), sharding.dims, sharding.axes,
+                                      sharding.chunks)
         return torch.cat([t.detach().reshape(-1).float() for t in whole]).cpu()
 
     out = {"theta0": flat(sharding.params), "theta": [], "ema": [], "norms": [], "seconds": []}
@@ -2103,16 +2151,58 @@ def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS):
     out["launches"] = dict(launch_counts)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["held"] = {**state.held_bytes(), "accumulators": sum(acc_bytes[-2:])}  # g_x, g_a
+    out["whole"] = whole_digest(torch, sharding)
     return out
 
 
-def dp_rank(rank, port, queue, fsdp, steps):
-    """One of phase 9(c)'s (``fsdp`` 1) or 9(e)'s (``fsdp`` 2) ranks: gloo on
-    cuda:0, its 8 rows of each microbatch; rank 0 writes θ after each step
-    under DP_WORK. Puts its norms, seconds, collective seconds (9(c): the
-    all-reduces; 9(e): the gather and the reduce-scatters), launches, peak
-    memory, held bytes and whether its θ and EMA equal rank 0's bit for bit
-    after each step."""
+def sd_steps(torch, dtype, device, mesh=None):
+    """9(h): TP_STEPS sd_v1 steps (``make_sd_path`` at ``dtype``, flash) at
+    microbatch 1 × TP_ACCUM, split over ``mesh``'s tensor ranks: θ after
+    the last step (whole, flat fp32 on the host), the norms, the
+    synchronised step seconds, the launches, the peak memory, the bytes
+    held and the digest of the whole parameters."""
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.profile_step import make_sd_path
+    from siss_tpu_torch.train.step import draw_microbatch_randomness
+
+    state, step, _, _ = make_sd_path(device, mesh=mesh, dtype=dtype)
+    sharding = state.sharding
+    gen = torch.Generator(device=device).manual_seed(9)
+    batch = {k: torch.randn(TP_ACCUM, 1, 64, 64, 4, generator=gen, device=device)
+             for k in ("all", "deletion")}
+    prompt = torch.randn(77, 768, generator=gen, device=device)
+    batch["conditioning"] = prompt.expand(TP_ACCUM, 1, *prompt.shape)
+    draws = [draw_microbatch_randomness(gen, TP_ACCUM, 1, (64, 64, 4), 999, 1000, device)
+             for _ in range(TP_STEPS)]
+    out = {"norms": [], "seconds": []}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for d in draws:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws=d)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["norms"].append({k: float(m[k]) for k in DP_NORMS})
+    out["launches"] = dict(launch_counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["held"] = state.held_bytes()
+    out["whole"] = whole_digest(torch, sharding)
+    whole = sharding.gather_along(list(sharding.params), sharding.dims, sharding.axes,
+                                  sharding.chunks)
+    out["theta"] = [torch.cat([t.detach().reshape(-1).float().cpu() for t in whole])]
+    return out
+
+
+def dp_rank(rank, port, queue, fsdp, steps, tensor=1, kind="celeb"):
+    """One of phase 9(c)'s (``fsdp`` 1), 9(e)'s (``fsdp`` 2), 9(g)'s
+    (``tensor`` 2) or, with ``kind`` "sd", 9(h)'s ranks: gloo on cuda:0;
+    under (c) and (e) its 8 rows of each microbatch, under (g) and (h) the
+    whole cut batch. Rank 0 writes θ after each celeb step under DP_WORK.
+    Puts its norms, seconds, collective seconds ((c): the all-reduces; (e):
+    the gather and the reduce-scatters; (g), (h): the tensor axis's
+    all-reduces), launches, peak memory, held bytes and whether its θ and
+    EMA (celeb) and its whole parameters' digest equal rank 0's."""
     import traceback
 
     try:
@@ -2126,12 +2216,14 @@ def dp_rank(rank, port, queue, fsdp, steps):
         from siss_tpu_torch.parallel import (MeshConfig, destroy_distributed,
                                              initialize_distributed, make_rank_mesh)
         from siss_tpu_torch.parallel import fsdp as fsdp_module
+        from siss_tpu_torch.parallel import tensor as tensor_module
         from siss_tpu_torch.train import step as step_module
 
         dev = initialize_distributed("cuda:0", "gloo", rank=rank, world_size=DP_RANKS,
                                      init_method=f"tcp://localhost:{port}", timeout_s=600)
-        mesh = make_rank_mesh(MeshConfig(data=DP_RANKS // fsdp, fsdp=fsdp))
-        seconds = {"all_reduce": [], "gather": [], "scatter": []}
+        mesh = make_rank_mesh(MeshConfig(data=DP_RANKS // (fsdp * tensor), fsdp=fsdp,
+                                         tensor=tensor))
+        seconds = {"all_reduce": [], "gather": [], "scatter": [], "tensor": []}
 
         def timed(fn, key):
             def run(*args, **kwargs):
@@ -2146,16 +2238,20 @@ def dp_rank(rank, port, queue, fsdp, steps):
         fsdp_module.all_reduce_ = timed(fsdp_module.all_reduce_, "all_reduce")
         fsdp_module.Sharding.gather = timed(fsdp_module.Sharding.gather, "gather")
         fsdp_module.Sharding.scatter_add_ = timed(fsdp_module.Sharding.scatter_add_, "scatter")
+        tensor_module._summed = timed(tensor_module._summed, "tensor")
         assert step_module.Sharding is fsdp_module.Sharding
-        out = dp_steps(torch, torch.bfloat16, dev, mesh, steps)
+        if kind == "sd":
+            out = sd_steps(torch, torch.bfloat16, dev, mesh)
+        else:
+            accum, mb = (TP_ACCUM, TP_MB) if tensor > 1 else (None, None)
+            out = dp_steps(torch, torch.bfloat16, dev, mesh, steps, accum, mb)
         equal = []
-        for theta, ema in zip(out["theta"], out["ema"]):
-            ref = torch.cat([theta, ema])
-            mine = ref.clone()
+        for mine in out["theta"] + out.get("ema", []) + [out["whole"]]:
+            ref = mine.clone()
             dist.broadcast(ref, 0)
             equal.append(torch.equal(ref, mine))
         if rank == 0:
-            torch.save(out["theta"], DP_WORK / f"fsdp{fsdp}_rank0_theta.pt")
+            torch.save(out["theta"], DP_WORK / f"{dp_tag(fsdp, tensor, kind)}_rank0_theta.pt")
         destroy_distributed()
         queue.put({"rank": rank, "equal": equal, "norms": out["norms"], "seconds": out["seconds"],
                    "collectives": {k: v for k, v in seconds.items() if v},
@@ -2165,7 +2261,11 @@ def dp_rank(rank, port, queue, fsdp, steps):
         queue.put({"rank": rank, "error": traceback.format_exc()})
 
 
-def spawn_ranks(fsdp, steps):
+def dp_tag(fsdp, tensor, kind="celeb"):
+    return f"{kind}_" + (f"tensor{tensor}" if tensor > 1 else f"fsdp{fsdp}")
+
+
+def spawn_ranks(fsdp, steps, tensor=1, kind="celeb"):
     """Run ``dp_rank`` for ``steps`` steps on DP_RANKS processes sharing the
     card; their reports, rank 0's first. Every process is joined or killed."""
     import multiprocessing as mp
@@ -2176,7 +2276,7 @@ def spawn_ranks(fsdp, steps):
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=dp_rank, args=(r, port, queue, fsdp, steps))
+    procs = [ctx.Process(target=dp_rank, args=(r, port, queue, fsdp, steps, tensor, kind))
              for r in range(DP_RANKS)]
     for proc in procs:
         proc.start()
@@ -2189,41 +2289,43 @@ def spawn_ranks(fsdp, steps):
                 proc.kill()
     for r in ranks:
         if "error" in r:
-            raise AssertionError(f"data parallel (fsdp {fsdp}) rank {r['rank']} failed:\n"
-                                 f"{r['error']}")
+            raise AssertionError(f"{kind} ranks (fsdp {fsdp}, tensor {tensor}) rank {r['rank']} "
+                                 f"failed:\n{r['error']}")
     return ranks
 
 
-def check_ranks(torch, label, ranks, ref, fsdp, steps):
-    """The two ranks' checks of 9(c) and 9(e): θ (and EMA) equal across the
-    ranks after each step, exact launches, equal norms, and the errors
-    against one process's fp32 steps at most twice one process's bf16
-    errors. Returns the errors' ratios."""
-    per_step = {"siss_reduce": 4, "siss_bwd": 8}
+def check_ranks(torch, label, ranks, ref, fsdp, steps, tensor=1, per_step=None, kind="celeb"):
+    """The two ranks' checks of 9(c), 9(e), 9(g) and 9(h): θ (and EMA)
+    equal across the ranks after each step it was kept and their whole
+    parameters' digests equal, exact launches (``per_step``: the celeb
+    step's 4 reduce and 8 backward unless given), equal norms, and the
+    errors against one process's fp32 steps at most twice one process's
+    bf16 errors. Returns the errors' ratios."""
+    per_step = per_step or {"siss_reduce": 4, "siss_bwd": 8}
     for r in ranks:
         if not all(r["equal"]):
-            raise AssertionError(f"data parallel ({label}): rank {r['rank']}'s parameters or EMA "
-                                 f"differ from rank 0's after the steps {r['equal']}")
+            raise AssertionError(f"data parallel ({label}): rank {r['rank']}'s parameters, EMA or "
+                                 f"whole parameters differ from rank 0's: {r['equal']}")
         want = {k: steps * per_step.get(k, 0) for k in r["launches"]}
         if r["launches"] != want:
             raise AssertionError(f"data parallel ({label}) rank {r['rank']}: launches "
                                  f"{r['launches']}, expected {want}")
         if r["norms"] != ranks[0]["norms"]:
             raise AssertionError(f"data parallel ({label}): the ranks' norms differ")
-    two = {"theta": torch.load(DP_WORK / f"fsdp{fsdp}_rank0_theta.pt"), "norms": ranks[0]["norms"]}
+    two = {"theta": torch.load(DP_WORK / f"{dp_tag(fsdp, tensor, kind)}_rank0_theta.pt"),
+           "norms": ranks[0]["norms"]}
     fp32 = ref["fp32"]
 
     def errors(run):
         dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
         n = sum(d.numel() for d in dtheta)
-        rel = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["norms"], fp32["norms"])
-               for k in DP_NORMS]
+        rel = [relative(a[k], b[k]) for a, b in zip(run["norms"], fp32["norms"]) for k in DP_NORMS]
         return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
                 "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
                 "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
 
     e_one, e_two = errors(ref["bf16"]), errors(two)
-    ratios = {k: e_two[k] / e_one[k] for k in e_one}
+    ratios = {k: relative(e_two[k], 0.0) if e_one[k] == 0 else e_two[k] / e_one[k] for k in e_one}
     print(f"data parallel ({label}): errors against one process's fp32 step, one process bf16 "
           f"{json.dumps(e_one)}, two ranks {json.dumps(e_two)}, ratio {json.dumps(ratios)}")
     bad = {k: v for k, v in ratios.items() if not v <= 2.0}
@@ -2233,16 +2335,27 @@ def check_ranks(torch, label, ranks, ref, fsdp, steps):
     return ratios
 
 
-def split_elements(torch):
-    """Elements of the celeb UNet's parameters that an fsdp axis of 2 splits
-    (``fsdp_dim``), and of all of them."""
+def relative(a, b):
+    """|a − b| / |b|; where ``b`` is 0 (a norm of a step whose importance
+    weights all underflow, as sd_v1's 16,384-dimensional latents at t = 999
+    can give), 0 if ``a`` is 0 too, else infinite."""
+    if b == 0:
+        return 0.0 if a == 0 else math.inf
+    return abs(a - b) / abs(b)
+
+
+def split_elements(torch, axis="fsdp"):
+    """Elements of the celeb UNet's parameters that an fsdp (or tensor) axis
+    of 2 splits (``fsdp_dim``, ``tp_dim``), and of all of them."""
     from siss_tpu_torch.models import UNet2D, UNet2DConfig
-    from siss_tpu_torch.parallel import fsdp_dim
+    from siss_tpu_torch.parallel import fsdp_dim, tp_dim
 
     with torch.device("meta"):
-        params = list(UNet2D(UNet2DConfig.celebahq_256()).parameters())
-    return (sum(p.numel() for p in params if fsdp_dim(p.shape, 2) is not None),
-            sum(p.numel() for p in params))
+        params = list(UNet2D(UNet2DConfig.celebahq_256()).named_parameters())
+    split = [(fsdp_dim(p.shape, 2) if axis == "fsdp" else tp_dim(k.split("."), p.shape, 2))
+             is not None for k, p in params]
+    return (sum(p.numel() for (_, p), s in zip(params, split) if s),
+            sum(p.numel() for _, p in params))
 
 
 def cli_two_ranks(base, out_dir, *extra):
@@ -2436,7 +2549,76 @@ def phase_data_parallel(torch, card, base):
           f"cuda:0, {f_seconds:.1f} s with start-up; one run directory {f_run.name}, one log "
           f"with (d)'s {len(keys[0])} keys, {f_cps}, loaded whole in one process ({n} params); "
           f"img/s {[round(r['images_per_sec'], 2) for r in f_rows if 'loss_x/mean' in r]}")
+    tensor_parallel(torch, card)
     torch.backends.cudnn.deterministic = False
+
+
+def tensor_parallel(torch, card):
+    """9(g): the celeb step at full width on ``data=1 × tensor=2``, cut to
+    TP_MB × TP_ACCUM, against one process's bf16 and fp32 steps on the same
+    cut; 9(h): the sd_v1 step with flash at microbatch 1 × TP_ACCUM on
+    ``data=1 × tensor=2``, likewise against one process's, and the bf16
+    flash kernels at its local heads' shapes against their plain
+    versions."""
+    import gc
+
+    ref = {name: dp_steps(torch, dtype, "cuda", steps=TP_STEPS, accum=TP_ACCUM, mb=TP_MB)
+           for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+    ranks = spawn_ranks(1, TP_STEPS, tensor=2)
+    check_ranks(torch, "g", ranks, ref, 1, TP_STEPS, tensor=2,
+                per_step={"siss_reduce": TP_ACCUM, "siss_bwd": 2 * TP_ACCUM})
+    split, total = split_elements(torch, "tensor")
+    whole = ref["bf16"]["held"]
+    copies = {"params": 1, "ema": 1, "optimizer": 2, "accumulators": 2}
+    for r in ranks:
+        want = {k: whole[k] - 4 * copies[k] * split // 2 for k in HELD}
+        if ({k: r["held"][k] for k in HELD} != want
+                or r["held"]["params"] != TP_PARAM_BYTES["celeb"]):
+            raise AssertionError(f"tensor (g) rank {r['rank']}: held bytes {r['held']}, expected "
+                                 f"{want} (parameters {TP_PARAM_BYTES['celeb']})")
+    print(f"tensor (g) ({card}): {split} of {total} parameters split over tensor 2; held bytes a "
+          f"rank {json.dumps({k: ranks[0]['held'][k] for k in HELD})} against one process's "
+          f"{json.dumps({k: whole[k] for k in HELD})}")
+    for r in ranks:
+        ar = r["collectives"]["tensor"]
+        print(f"tensor (g) ({card}) rank {r['rank']}: step s {[round(t, 4) for t in r['seconds']]} "
+              f"(one process bf16 {[round(t, 4) for t in ref['bf16']['seconds']]}), "
+              f"{len(ar) // TP_STEPS} activation all-reduces {round(sum(ar) / TP_STEPS, 4)} s a "
+              f"step, peak "
+              f"memory {r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}), "
+              f"launches {r['launches']}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        ref[name] = sd_steps(torch, dtype, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = spawn_ranks(1, TP_STEPS, tensor=2, kind="sd")
+    check_ranks(torch, "h", ranks, ref, 1, TP_STEPS, tensor=2, per_step=TP_SD_PER_STEP,
+                kind="sd")
+    want = {k: TP_STEPS * n for k, n in TP_SD_PER_STEP.items()}
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"tensor (h) rank {r['rank']}: launches {r['launches']}, "
+                                 f"expected {want}")
+        if r["held"]["params"] != TP_PARAM_BYTES["sd"]:
+            raise AssertionError(f"tensor (h) rank {r['rank']}: {r['held']['params']} parameter "
+                                 f"bytes, expected {TP_PARAM_BYTES['sd']}")
+    for r in ranks:
+        ar = r["collectives"]["tensor"]
+        print(f"tensor (h) ({card}) rank {r['rank']}: sd_v1 flash step s "
+              f"{[round(t, 4) for t in r['seconds']]} (one process bf16 "
+              f"{[round(t, 4) for t in ref['bf16']['seconds']]}), {len(ar) // TP_STEPS} "
+              f"activation all-reduces {round(sum(ar) / TP_STEPS, 4)} s a step, peak memory "
+              f"{r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}; "
+              f"scripts/fsdp_memory.py's readings: {FSDP_MEMORY_GIB}), held bytes "
+              f"{json.dumps(r['held'])} (parameters whole {SD_PARAM_BYTES}), launches "
+              f"{r['launches']}, norms {r['norms'][-1]}")
+    for i, shape in enumerate(TP_FLASH_SHAPES):
+        check_flash_case(torch, shape, torch.bfloat16, seed=100 + i)
 
 
 def main() -> int:

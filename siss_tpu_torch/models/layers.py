@@ -9,11 +9,14 @@ its [B, HW, C] view straight from that layout.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from siss_tpu_torch.parallel.tensor import (TensorSplit, block, copy, local_size, reduce, row_conv,
+                                            row_linear)
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -49,12 +52,21 @@ class TimestepEmbedding(nn.Module):
 
 class ResnetBlock2D(nn.Module):
     """GroupNorm → SiLU → Conv, time-emb add, GroupNorm → SiLU → Conv, +skip.
-    A channel change goes through a 1×1 ``conv_shortcut``."""
+    A channel change goes through a 1×1 ``conv_shortcut``.
+
+    Under a ``tensor`` axis (``set_tensor_split``) ``conv1``,
+    ``time_emb_proj`` and ``norm2`` hold this rank's block of the output
+    channels (and of the groups), ``conv2`` its block of the input channels:
+    its partial output is summed over the tensor ranks, then its bias added
+    once. ``norm1`` and the shortcut stay whole."""
+
+    tensor_split = None
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
                  groups: int = 32, eps: float = 1e-6, output_scale_factor: float = 1.0):
         super().__init__()
         self.output_scale_factor = output_scale_factor
+        self.groups, self.out_channels = groups, out_channels
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels) if temb_channels else None
@@ -63,28 +75,51 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
+    def set_tensor_split(self, split: Optional[TensorSplit]) -> Tuple[str, ...]:
+        """Run on this rank's channels under ``split`` (None: whole again);
+        ``norm2`` then normalises groups/tp groups of channels/tp channels.
+        Returns the whole parameters used in a slice: none."""
+        self.norm2.num_groups = local_size(self.groups, split, "groups", "ResnetBlock2D")
+        self.norm2.num_channels = local_size(self.out_channels, split, "channels", "ResnetBlock2D")
+        self.tensor_split = split
+        return ()
+
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        split = self.tensor_split
+        h = self.conv1(copy(F.silu(self.norm1(x)), split))
         if temb is not None and self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+            h = h + self.time_emb_proj(copy(F.silu(temb), split))[:, :, None, None]
+        h = row_conv(F.silu(self.norm2(h)), self.conv2, split)
         residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return (h + residual) / self.output_scale_factor
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                   split: Optional[TensorSplit] = None) -> torch.Tensor:
     """Materialised attention over [..., N, d]: fp32 logits and softmax,
-    then P cast to v's type before P·V, as the flax blocks do."""
+    then P cast to v's type before P·V, as the flax blocks do. Under
+    ``split`` q and k hold this rank's part of each head's dimension: the
+    logits are summed over the tensor ranks before the softmax."""
     with torch.autocast(q.device.type, enabled=False):
-        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        attn = torch.softmax(attn, dim=-1)
+        attn = reduce(torch.matmul(q.float(), k.float().transpose(-1, -2)), split) * scale
+        attn = copy(torch.softmax(attn, dim=-1), split)
     return torch.matmul(attn.to(v.dtype), v)
 
 
 class SpatialAttention(nn.Module):
     """Self-attention over the H×W grid (diffusers ``Attention`` inside
     Attn{Down,Up,Mid}Block2D). Logits and softmax are fp32, then cast to
-    v's dtype, as in the flax block; plain matmuls, no fused kernel."""
+    v's dtype, as in the flax block; plain matmuls, no fused kernel.
+
+    Under a ``tensor`` axis (``set_tensor_split``) ``to_q``/``to_k``/``to_v``
+    hold this rank's block of output channels and use the same slice of
+    their whole biases, ``to_out`` its block of input channels. When the
+    ranks divide the heads each rank runs heads/tp whole heads; one head (the
+    celeb UNet's) is split along its dimension, so each rank's q·kᵀ is a
+    partial sum of the fp32 logits, summed over the tensor ranks before the
+    softmax."""
+
+    tensor_split = None
 
     def __init__(self, channels: int, num_heads: int = 1, groups: int = 32, eps: float = 1e-6,
                  rescale_output_factor: float = 1.0):
@@ -97,19 +132,32 @@ class SpatialAttention(nn.Module):
         self.to_v = nn.Linear(channels, channels)
         self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
 
+    def set_tensor_split(self, split: Optional[TensorSplit]) -> Tuple[str, ...]:
+        """Run on this rank's heads (or its part of the one head) under
+        ``split`` (None: whole again). Returns the whole parameters used in
+        a slice: the q, k and v biases."""
+        if split is not None and self.num_heads > 1:
+            local_size(self.num_heads, split, "heads", "SpatialAttention")
+        self.tensor_split = split
+        return () if split is None else ("to_q.bias", "to_k.bias", "to_v.bias")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
+        split = self.tensor_split
         residual = x
-        h = self.group_norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = copy(self.group_norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C), split)
         head_dim = C // self.num_heads
+        # This rank's heads; one head is split along its dimension instead.
+        heads = local_size(self.num_heads, split if self.num_heads > 1 else None, "heads",
+                           "SpatialAttention")
 
-        def split(a):
-            return a.reshape(B, H * W, self.num_heads, head_dim).transpose(1, 2)
+        def project(lin):   # [B, N, heads·d] → a [B, heads, N, d] view
+            a = F.linear(h, lin.weight, block(lin.bias, split))
+            return a.reshape(B, H * W, heads, -1).transpose(1, 2)
 
-        q, k, v = split(self.to_q(h)), split(self.to_k(h)), split(self.to_v(h))
-        out = attention_core(q, k, v, 1.0 / math.sqrt(head_dim))
-        out = out.transpose(1, 2).reshape(B, H * W, C)
-        out = self.to_out[0](out)
+        out = attention_core(project(self.to_q), project(self.to_k), project(self.to_v),
+                             1.0 / math.sqrt(head_dim), split if self.num_heads == 1 else None)
+        out = row_linear(out.transpose(1, 2).reshape(B, H * W, -1), self.to_out[0], split)
         out = out.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return (out + residual) / self.rescale_output_factor
 

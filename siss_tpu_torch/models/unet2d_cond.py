@@ -54,6 +54,7 @@ from siss_tpu_torch.models.layers import (
 )
 from siss_tpu_torch.models.unet2d import _Block, init_weights
 from siss_tpu_torch.ops.flash_attention import flash_attention
+from siss_tpu_torch.parallel.tensor import TensorSplit, copy, local_size, row_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +102,15 @@ class UNet2DConditionConfig:
 
 class CrossAttention(nn.Module):
     """diffusers ``Attention``: query from x, key/value from the context (or
-    x for self-attention); heads × dim_head = inner channels."""
+    x for self-attention); heads × dim_head = inner channels.
+
+    Under a ``tensor`` axis (``set_tensor_split``) ``to_q``/``to_k``/``to_v``
+    hold this rank's heads/tp heads, on which the attention (the flash
+    kernels included) runs locally, and ``to_out`` its block of input
+    channels, whose partial output is summed over the tensor ranks."""
 
     _IMPLS = ("auto", "einsum", "einsum_remat", "flash")
+    tensor_split = None
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, impl: str = "auto"):
@@ -114,6 +121,13 @@ class CrossAttention(nn.Module):
         self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def set_tensor_split(self, split: Optional[TensorSplit]) -> Tuple[str, ...]:
+        """Run on this rank's heads under ``split`` (None: whole again).
+        Returns the whole parameters used in a slice: none."""
+        local_size(self.heads, split, "heads", "CrossAttention")
+        self.tensor_split = split
+        return ()
 
     def _use_flash(self, is_self: bool, n_q: int) -> bool:
         if self.impl not in self._IMPLS:
@@ -131,16 +145,18 @@ class CrossAttention(nn.Module):
         return False
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        split = self.tensor_split
+        x = copy(x, split)
         is_self = context is None
-        context = x if is_self else context
+        context = x if is_self else copy(context, split)
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
-        B, Nq, inner = q.shape
+        B, Nq, inner = q.shape   # this rank's heads × dim_head under a split
         Nk = k.shape[1]
 
-        def split(a, n):  # [B, n, H·d] → a [B, H, n, d] view
-            return a.reshape(B, n, self.heads, self.dim_head).transpose(1, 2)
+        def split_heads(a, n):  # [B, n, H·d] → a [B, H, n, d] view
+            return a.reshape(B, n, -1, self.dim_head).transpose(1, 2)
 
-        q, k, v = split(q, Nq), split(k, Nk), split(v, Nk)
+        q, k, v = split_heads(q, Nq), split_heads(k, Nk), split_heads(v, Nk)
         scale = 1.0 / math.sqrt(self.dim_head)
         if self._use_flash(is_self, Nq):
             out = flash_attention(q, k, v, scale)
@@ -151,12 +167,14 @@ class CrossAttention(nn.Module):
         else:
             out = attention_core(q, k, v, scale)
         out = out.transpose(1, 2).reshape(B, Nq, inner)
-        return self.to_out[0](out)
+        return row_linear(out, self.to_out[0], split)
 
 
 class GEGLU(nn.Module):
     """diffusers ``GEGLU``: one projection to 2·inner, split into value and
-    gate, value × gelu(gate) with the exact (erf) gelu."""
+    gate, value × gelu(gate) with the exact (erf) gelu. Under a ``tensor``
+    axis the projection holds this rank's block of the value's rows and the
+    same block of the gate's, so the product stays local."""
 
     def __init__(self, dim: int, inner: int):
         super().__init__()
@@ -169,16 +187,29 @@ class GEGLU(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """diffusers ``FeedForward`` with GEGLU: ``net.0`` GEGLU, ``net.1`` the
-    (inactive) dropout, ``net.2`` the output projection."""
+    (inactive) dropout, ``net.2`` the output projection, row-split under a
+    ``tensor`` axis: its partial output is summed over the tensor ranks."""
+
+    tensor_split = None
+    # The projection's rows are [h | gate]: two chunks, each split.
+    tensor_chunks = {"net.0.proj.weight": 2, "net.0.proj.bias": 2}
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
+        self.inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
 
+    def set_tensor_split(self, split: Optional[TensorSplit]) -> Tuple[str, ...]:
+        """Run on this rank's block of the inner channels under ``split``
+        (None: whole again). Returns the whole parameters used in a slice:
+        none."""
+        local_size(self.inner, split, "inner channels", "GEGLUFeedForward")
+        self.tensor_split = split
+        return ()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.net:
-            x = layer(x)
-        return x
+        split = self.tensor_split
+        return row_linear(self.net[1](self.net[0](copy(x, split))), self.net[2], split)
 
 
 class BasicTransformerBlock(nn.Module):

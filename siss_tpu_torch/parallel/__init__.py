@@ -1,6 +1,7 @@
-"""Data and fully sharded data parallelism over ``torch.distributed``: port
-of the ``data`` and ``fsdp`` axes of ``siss_tpu/parallel/``. The ``tensor``
-axis is not ported (``mesh.resolve_mesh`` raises for it)."""
+"""Data, fully sharded data and tensor parallelism over
+``torch.distributed``: port of the ``data``, ``fsdp`` and ``tensor`` axes of
+``siss_tpu/parallel/``. ``tensor`` and ``fsdp`` both above 1 are not ported
+(``mesh.resolve_mesh`` raises for them)."""
 
 from siss_tpu_torch.parallel.distributed import (
     RankMesh,
@@ -16,7 +17,7 @@ from siss_tpu_torch.parallel.distributed import (
     world_size,
 )
 from siss_tpu_torch.parallel.fsdp import Sharding, shard_module, world_mesh
-from siss_tpu_torch.parallel.mesh import MeshConfig, fsdp_dim, resolve_mesh
+from siss_tpu_torch.parallel.mesh import MeshConfig, fsdp_dim, resolve_mesh, tp_dim
 from siss_tpu_torch.parallel.multihost import (
     all_gather_along,
     all_reduce_,
@@ -56,6 +57,7 @@ __all__ = [
     "reduce_scatter_add_",
     "resolve_mesh",
     "shard_module",
+    "tp_dim",
     "world_mesh",
     "world_size",
 ]

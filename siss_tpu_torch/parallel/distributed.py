@@ -9,16 +9,19 @@ and ``MASTER_PORT``; ``maybe_initialize_distributed`` reads them. One rank
 drives one device. Every helper here is correct without a process group
 (one process: rank 0 of 1).
 
-``make_rank_mesh`` lays the ranks out as the resolved ``data × fsdp`` mesh,
-data-outermost as the JAX ``make_mesh`` reshapes its devices: rank r is at
-``data`` coordinate r // fsdp and ``fsdp`` coordinate r % fsdp. An axis's
-group holds the ranks that differ only along it.
+``make_rank_mesh`` lays the ranks out as the resolved ``data × fsdp ×
+tensor`` mesh, data-outermost and tensor-innermost as the JAX ``make_mesh``
+reshapes its devices to (data, fsdp, tensor): rank r is at ``data``
+coordinate r // (fsdp·tensor), ``fsdp`` coordinate (r // tensor) % fsdp and
+``tensor`` coordinate r % tensor. An axis's group holds the ranks that
+differ only along it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -119,51 +122,81 @@ def broadcast_object(obj: Any) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
-    """This rank's place in the ``data × fsdp`` mesh. ``data_group`` holds
-    the ranks with this rank's ``fsdp`` coordinate, ``fsdp_group`` those
-    with its ``data`` coordinate; None is the whole world. An axis of size
-    1 has no collective."""
+    """This rank's place in the ``data × fsdp × tensor`` mesh. Each axis's
+    group holds the ranks that differ from this one only along that axis;
+    None is the whole world. An axis of size 1 has no collective."""
 
     data: int = 1
     fsdp: int = 1
     data_group: Any = None
     fsdp_group: Any = None
+    tensor: int = 1
+    tensor_group: Any = None
+
+    @property
+    def tensor_rank(self) -> int:
+        """This rank's coordinate on the ``tensor`` axis: which block of
+        each tensor-split parameter it holds."""
+        return rank() % self.tensor
 
     @property
     def fsdp_rank(self) -> int:
         """This rank's coordinate on the ``fsdp`` axis: which shard it holds."""
-        return rank() % self.fsdp
+        return rank() // self.tensor % self.fsdp
+
+    @property
+    def batch_ranks(self) -> int:
+        """The ranks over which the batch is split: ``data × fsdp``."""
+        return self.data * self.fsdp
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's block of the batch: its ``data × fsdp`` coordinate.
+        The ranks of a tensor group share it."""
+        return rank() // self.tensor
 
     def __str__(self) -> str:
-        return f"data {self.data} x fsdp {self.fsdp}"
+        out = f"data {self.data} x fsdp {self.fsdp}"
+        return out + (f" x tensor {self.tensor}" if self.tensor > 1 else "")
 
 
-#: The subgroups of each 2-D mesh built in this world: ``new_group`` is
+#: The subgroups of each mesh built in this world: ``new_group`` is
 #: collective, so a world builds each once, every rank in the same order.
-_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
+_GROUPS: Dict[Tuple[int, int, int], Tuple[Any, Any, Any]] = {}
+
+
+def _axis_groups(sizes: Tuple[int, int, int]) -> Tuple[Any, Any, Any]:
+    """This rank's group along each axis of a (data, fsdp, tensor) mesh of
+    ``sizes``: None where the axis spans the world or has size 1 (no
+    collective runs over it), else the group of the ranks that differ from
+    this one only along it. Every rank creates every group, axis by axis,
+    in the same order."""
+    world, me = math.prod(sizes), rank()
+    strides = (sizes[1] * sizes[2], sizes[2], 1)
+    mine: list = [None, None, None]
+    for axis, (size, stride) in enumerate(zip(sizes, strides)):
+        if size in (1, world):
+            continue
+        starts = sorted({r - (r // stride % size) * stride for r in range(world)})
+        for start in starts:
+            members = [start + i * stride for i in range(size)]
+            group = dist.new_group(members)
+            if me in members:
+                mine[axis] = group
+    return tuple(mine)
 
 
 def make_rank_mesh(cfg: MeshConfig = MeshConfig()) -> RankMesh:
     """``cfg`` resolved over the ranks (``resolve_mesh``: ``tensor`` > 1
-    raises), with this rank's groups. Collective on every rank when both
-    axes are above 1 and the world has not built that mesh's groups yet."""
+    with ``fsdp`` > 1 raises), with this rank's groups. Collective on every
+    rank when two axes are above 1 and the world has not built that mesh's
+    groups yet."""
     mesh = resolve_mesh(cfg, world_size())
-    if mesh.data == 1 or mesh.fsdp == 1:   # one axis spans the world
-        return RankMesh(mesh.data, mesh.fsdp)
-    key = (mesh.data, mesh.fsdp)
+    key = (mesh.data, mesh.fsdp, mesh.tensor)
     if key not in _GROUPS:
-        r, D, F = rank(), mesh.data, mesh.fsdp
-        fsdp_group = data_group = None
-        for d in range(D):
-            group = dist.new_group([d * F + f for f in range(F)])
-            if r // F == d:
-                fsdp_group = group
-        for f in range(F):
-            group = dist.new_group([d * F + f for d in range(D)])
-            if r % F == f:
-                data_group = group
-        _GROUPS[key] = (data_group, fsdp_group)
-    return RankMesh(mesh.data, mesh.fsdp, *_GROUPS[key])
+        _GROUPS[key] = _axis_groups(key)
+    data_group, fsdp_group, tensor_group = _GROUPS[key]
+    return RankMesh(mesh.data, mesh.fsdp, data_group, fsdp_group, mesh.tensor, tensor_group)
 
 
 def destroy_distributed() -> None:

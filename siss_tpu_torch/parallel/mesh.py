@@ -1,13 +1,16 @@
 """How the ranks are laid out: counterpart of ``siss_tpu/parallel/mesh.py``.
 
 The JAX package lays its devices out as a (data, fsdp, tensor) mesh,
-data-outermost. The port has one device per rank and ports the ``data``
-and ``fsdp`` axes: global rank r sits at ``data`` coordinate r // fsdp and
-``fsdp`` coordinate r % fsdp, the batch is split over all ranks (as
-``batch_sharding`` splits it over ``("data", "fsdp")``), and each large
-parameter is split over the ``fsdp`` ranks along the dimension that
-``fsdp_dim`` picks (``parallel.fsdp``). ``tensor`` (the model split
-Megatron-style) is not ported yet.
+data-outermost. The port has one device per rank: global rank r sits at
+``data`` coordinate r // (fsdp·tensor), ``fsdp`` coordinate
+(r // tensor) % fsdp and ``tensor`` coordinate r % tensor. The batch is
+split over the ``data × fsdp`` ranks (as ``batch_sharding`` splits it over
+``("data", "fsdp")``) and replicated over ``tensor``. Each large parameter
+is split over the ``fsdp`` ranks along the dimension that ``fsdp_dim``
+picks (``parallel.fsdp``); with a ``tensor`` axis, each parameter with a
+Megatron role is split over the ``tensor`` ranks along the dimension that
+``tp_dim`` picks (``parallel.tensor``). The two axes together (``fsdp`` and
+``tensor`` both above 1) are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,13 +48,14 @@ class MeshConfig:
 
 def resolve_mesh(cfg: MeshConfig, world_size: int) -> MeshConfig:
     """``cfg`` resolved over ``world_size`` ranks, one device each. A
-    ``tensor`` axis above 1 raises ``NotImplementedError`` first. Unlike the
-    JAX ``make_mesh``, an explicit ``data`` that leaves ranks over raises
-    (``resolve``) instead of leaving them idle."""
-    if cfg.tensor > 1:
+    ``tensor`` axis above 1 together with an ``fsdp`` axis above 1 raises
+    ``NotImplementedError`` first. Unlike the JAX ``make_mesh``, an explicit
+    ``data`` that leaves ranks over raises (``resolve``) instead of leaving
+    them idle."""
+    if cfg.tensor > 1 and cfg.fsdp > 1:
         raise NotImplementedError(
-            f"mesh {cfg}: the tensor axis (the model split over ranks) is not ported yet "
-            "(ROADMAP Queue 1 item 12c); use tensor: 1")
+            f"mesh {cfg}: the tensor axis together with the fsdp axis is not ported yet "
+            "(ROADMAP Queue 1 item 12c(ii)); use fsdp: 1 with tensor > 1")
     return cfg.resolve(world_size)
 
 
@@ -80,3 +84,48 @@ def fsdp_dim(shape: Sequence[int], n: int, min_size: int = FSDP_MIN_SIZE) -> Opt
         if shape[dim] % n == 0 and shape[dim] >= n:
             return dim
     return None
+
+
+#: The Megatron role of each parameter that the ``tensor`` axis splits, by
+#: its module's last name: the torch dimension split for the weight and for
+#: the bias (None: the bias stays whole). Column layers split their output,
+#: row layers their input. JAX's ``_tp_spec`` in the torch layout.
+_ATTENTION_ROLES = {"to_q": (0, None), "to_k": (0, None), "to_v": (0, None), "to_out": (1, None)}
+_RESNET_ROLES = {"conv1": (0, 0), "time_emb_proj": (0, 0), "norm2": (0, 0), "conv2": (1, None)}
+
+
+def _tp_role(names: Sequence[str]) -> Optional[int]:
+    """The torch dimension that JAX's ``_tp_spec`` splits for the parameter
+    at the state-dict path ``names``, or None (no role)."""
+    names = tuple(str(n) for n in names)
+    leaf = names[-1]
+    # to_out.0 and ff.net.{0.proj,2} carry a list index in torch.
+    module = names[-3] if len(names) >= 3 and names[-2].isdigit() else names[-2]
+    if names[-5:-1] == ("ff", "net", "0", "proj"):   # GEGLU's projection
+        return 0
+    if names[-4:-1] == ("ff", "net", "2"):            # the feed-forward's output
+        return 1 if leaf == "weight" else None
+    if module in _ATTENTION_ROLES:
+        return _ATTENTION_ROLES[module][0 if leaf == "weight" else 1]
+    if len(names) >= 4 and names[-4] == "resnets" and names[-2] in _RESNET_ROLES:
+        return _RESNET_ROLES[names[-2]][0 if leaf == "weight" else 1]
+    return None
+
+
+def tp_dim(names: Sequence[str], shape: Sequence[int], n: int) -> Optional[int]:
+    """The torch dimension of the parameter at the state-dict path ``names``
+    (``key.split(".")``) of ``shape`` that a ``tensor`` axis of ``n`` ranks
+    splits, or None (whole on every tensor rank): JAX's ``_tp_spec`` with
+    ``_param_spec``'s guard, read in the torch layout. The attention
+    projections ``to_q``/``to_k``/``to_v``, GEGLU's projection and a
+    resnet's ``conv1``, ``time_emb_proj`` and ``norm2`` split their output
+    (dim 0); ``to_out``, the feed-forward's output projection and a resnet's
+    ``conv2`` their input (dim 1). A role splits only where ``n`` divides
+    the dimension; otherwise the parameter stays whole, as JAX falls back
+    to ``_fsdp_spec``, replicated at fsdp 1."""
+    if n <= 1:
+        return None
+    dim = _tp_role(names)
+    if dim is None or dim >= len(shape) or int(shape[dim]) % n:
+        return None
+    return dim

@@ -8,7 +8,10 @@ stitches the processes' slices into one global array, process r's slice at
 rows ``[r·b, (r+1)·b)``; the port keeps the slices apart and says which rows
 of the global batch a rank holds (``rank_rows``). Every rank draws the
 global batch's randomness and keeps its rows, so a step on R ranks is the
-one-process step on the global batch up to the order of its sums.
+one-process step on the global batch up to the order of its sums. Under a
+``tensor`` axis the ranks of a tensor group hold the same rows: the batch
+is split by the ``data × fsdp`` coordinate (``RankMesh.batch_rank``) of a
+``mesh`` passed in, never by the tensor coordinate.
 
 The ``fsdp`` axis adds an all-gather and a reduce-scatter (SUM) along one
 dimension of each tensor within a group (``all_gather_along``,
@@ -16,15 +19,15 @@ dimension of each tensor within a group (``all_gather_along``,
 (``all_reduce_sum``). Under NCCL they are ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor``; gloo has neither for CUDA tensors, so under gloo
 they are one ``all_reduce`` of a zero-filled buffer of every rank's blocks,
-as ``gather_rows`` is. The backend picks the form; a collective that fails
-raises.
+as ``gather_rows`` is. The backend picks the form (``_native_collectives``);
+a collective that fails raises.
 
 Every function here is correct without a process group (rank 0 of 1).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,39 +39,54 @@ from siss_tpu_torch.parallel.distributed import collective_device, is_initialize
 BUCKET_NUMEL = 2 ** 24
 
 
-def process_batch_slice(global_batch_size: int) -> int:
-    """This rank's share of the global batch, which the ranks must divide."""
-    n = world_size()
+def _batch_coordinate(mesh) -> Tuple[int, int]:
+    """(this rank's block of the batch, the number of blocks): the world's
+    rank and size without a ``mesh``, else its ``data × fsdp`` coordinate:
+    the ranks of a ``tensor`` group share one block."""
+    if mesh is None:
+        return rank(), world_size()
+    return mesh.batch_rank, mesh.batch_ranks
+
+
+def process_batch_slice(global_batch_size: int, mesh=None) -> int:
+    """This rank's share of the global batch, which the batch ranks (every
+    rank without a ``mesh``) must divide."""
+    n = _batch_coordinate(mesh)[1]
     if global_batch_size % n:
         raise ValueError(f"global batch {global_batch_size} not divisible by {n} processes")
     return global_batch_size // n
 
 
-def make_rank_sampler(sampler_cls, dataset_len: int, **kwargs):
-    """A sampler striped for this rank (the reference's rank/num_replicas
-    contract)."""
-    return sampler_cls(dataset_len, rank=rank(), num_replicas=world_size(), **kwargs)
+def make_rank_sampler(sampler_cls, dataset_len: int, mesh=None, **kwargs):
+    """A sampler striped for this rank's block of the batch (the
+    reference's rank/num_replicas contract)."""
+    me, n = _batch_coordinate(mesh)
+    return sampler_cls(dataset_len, rank=me, num_replicas=n, **kwargs)
 
 
-def rank_rows(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def rank_rows(x: torch.Tensor, axis: int = 0, mesh=None) -> torch.Tensor:
     """This rank's contiguous block of the global ``x`` along ``axis``: rows
-    ``[r·b, (r+1)·b)`` with b = size / world size (a view)."""
-    b = process_batch_slice(x.shape[axis])
-    return x.narrow(axis, rank() * b, b)
+    ``[r·b, (r+1)·b)`` with r the rank's batch coordinate and b = size /
+    the batch ranks (a view)."""
+    b = process_batch_slice(x.shape[axis], mesh)
+    return x.narrow(axis, _batch_coordinate(mesh)[0] * b, b)
 
 
-def gather_rows(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, axis: int = 0, mesh=None) -> torch.Tensor:
     """The global tensor whose ``rank_rows`` on each rank is that rank's
     ``x``, on every rank. An all-reduce (SUM) of a zero-filled global buffer
-    into which each rank writes its rows: gloo has no all-gather of CUDA
+    into which each rank writes its rows (one rank of each ``tensor`` group,
+    whose ranks hold the same rows): gloo has no all-gather of CUDA
     tensors, and this form works under both backends."""
     if not is_initialized():
         return x
+    me, n = _batch_coordinate(mesh)
     shape = list(x.shape)
     b = shape[axis]
-    shape[axis] = b * world_size()
+    shape[axis] = b * n
     out = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    out.narrow(axis, rank() * b, b).copy_(x)
+    if mesh is None or mesh.tensor_rank == 0:
+        out.narrow(axis, me * b, b).copy_(x)
     dist.all_reduce(out)
     return out
 
@@ -76,6 +94,13 @@ def gather_rows(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
 def _group_size(group) -> int:
     """The ranks of ``group`` (None: the world); 1 without a process group."""
     return dist.get_world_size(group) if is_initialized() else 1
+
+
+def _native_collectives(group) -> bool:
+    """Whether ``group``'s backend gathers and scatters along a dimension
+    itself (``all_gather_into_tensor``, ``reduce_scatter_tensor``): NCCL.
+    Otherwise both go through one ``all_reduce``."""
+    return dist.get_backend(group) == "nccl"
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -162,7 +187,7 @@ def all_gather_along(shards: Sequence[torch.Tensor], dims: Sequence[int], group=
     if n_ranks == 1:
         return list(shards)
     me = dist.get_rank(group)
-    nccl = dist.get_backend(group) == "nccl"
+    nccl = _native_collectives(group)
     out: List[Optional[torch.Tensor]] = [None] * len(shards)
     for run in _buckets(shards, lambda i: n_ranks * shards[i].numel(), bucket_numel):
         sizes = [shards[i].numel() for i in run]
@@ -195,7 +220,7 @@ def reduce_scatter_add_(tensors: Sequence[torch.Tensor], dims: Sequence[Optional
         torch._foreach_add_(list(outs), [t.to(o.dtype) for t, o in zip(tensors, outs)])
         return
     me = dist.get_rank(group)
-    nccl = dist.get_backend(group) == "nccl"
+    nccl = _native_collectives(group)
     for run in _buckets(tensors, lambda i: n_ranks * outs[i].numel(), bucket_numel):
         sizes = [outs[i].numel() for i in run]
         n = sum(sizes)

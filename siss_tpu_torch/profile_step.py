@@ -51,8 +51,8 @@ _FAMILIES = (
 def make_main_path(device="cuda", dtype=torch.bfloat16, mesh=None):
     """(state, step, batch, generator) of the flagship step on ``device``;
     ``dtype`` is the UNet's compute type (bf16 autocast over fp32 params);
-    ``mesh`` a ``parallel.RankMesh`` whose ``fsdp`` axis splits the UNet
-    (None: every rank on ``data``)."""
+    ``mesh`` a ``parallel.RankMesh`` whose ``fsdp`` or ``tensor`` axis
+    splits the UNet (None: every rank on ``data``)."""
     from siss_tpu_torch.diffusion import NoiseSchedule
     from siss_tpu_torch.models import UNet2DConfig, build_unet
     from siss_tpu_torch.parallel import shard_module
@@ -75,7 +75,7 @@ def make_main_path(device="cuda", dtype=torch.bfloat16, mesh=None):
     return state, step, batch, gen
 
 
-def make_sd_path(device="cuda", mesh=None):
+def make_sd_path(device="cuda", mesh=None, dtype=torch.bfloat16):
     """(state, step, batch, generator) of the SD-1.x latent SISS step on
     ``device``, as ``bench.py --workload sd`` builds it (``build_sd``) with
     ``configs/delete_sd.yaml``'s settings and ``--attention-impl flash``:
@@ -83,8 +83,8 @@ def make_sd_path(device="cuda", mesh=None):
     autocast over fp32 params, AdamW(1e-5, betas (0.9, 0.999), wd 1e-2,
     eps 1e-8), scaling_norm 750, λ 0.5, t ≡ 999, max_grad_norm 1, no EMA,
     microbatch 1 × 16 accumulation steps of [64, 64, 4] latents, and one
-    77×768 prompt embedding shared by every microbatch. ``mesh`` as in
-    ``make_main_path``."""
+    77×768 prompt embedding shared by every microbatch. ``mesh`` and
+    ``dtype`` as in ``make_main_path``."""
     from siss_tpu_torch.diffusion import sd_noise_schedule
     from siss_tpu_torch.models import UNet2DConditionConfig, build_unet_cond
     from siss_tpu_torch.parallel import shard_module
@@ -93,7 +93,7 @@ def make_sd_path(device="cuda", mesh=None):
 
     cfg = UNet2DConditionConfig.sd_v1(gradient_checkpointing=True, attention_impl="flash",
                                       remat_attention=False)
-    model = build_unet_cond(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    model = build_unet_cond(cfg, seed=0, dtype=dtype, device=device)
     sharding = shard_module(model, mesh)
     opt, sched = build_optimizer(SD_ADAMW, model.parameters(), sharding=sharding)
     state = TrainState.create(model, opt, sched, sharding=sharding)

@@ -122,9 +122,10 @@ class DeleteCeleb(Task):
         state = TrainState.create(model, opt, lr_schedule, use_ema=step_cfg.use_ema,
                                   sharding=sharding)
 
-        bs_local = process_batch_slice(bs)
-        keep_loader = BatchLoader(dataset_all, make_rank_sampler(InfiniteSampler, len(dataset_all),
-                                                                 seed=seed), bs_local)
+        bs_local = process_batch_slice(bs, self.mesh)
+        keep_loader = BatchLoader(dataset_all,
+                                  make_rank_sampler(InfiniteSampler, len(dataset_all), seed=seed,
+                                                    mesh=self.mesh), bs_local)
         forget_loader = BatchLoader(dataset_deletion,
                                     RepeatedSampler(len(dataset_deletion),
                                                     training_steps * accum * bs_local), bs_local)
@@ -133,7 +134,8 @@ class DeleteCeleb(Task):
                               (ucfg.sample_size, ucfg.sample_size, ucfg.in_channels),
                               num_inference_steps=int(cfg.pipeline.num_inference_steps),
                               random_seed=seed, solver=str(cfg.pipeline.get("solver", "ddpm")),
-                              injection_steps=int(cfg.pipeline.get("injection_steps", 10)))
+                              injection_steps=int(cfg.pipeline.get("injection_steps", 10)),
+                              mesh=self.mesh)
 
         inj_cfg = metrics_cfg.get("denoising_injections")
         target_image = None

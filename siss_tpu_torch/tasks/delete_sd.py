@@ -171,7 +171,7 @@ class DeleteSD(Task):
 
         training_steps = int(cfg.training_steps)
         bs = int(cfg.train_batch_size)
-        bs_local = process_batch_slice(bs)
+        bs_local = process_batch_slice(bs, self.mesh)
         accum = int(cfg.gradient_accumulation_steps)
         opt, lr_schedule = build_optimizer(self._optimizer_cfg(), unet.parameters(),
                                            str(cfg.lr_scheduler), int(cfg.lr_warmup_steps),
@@ -220,13 +220,14 @@ class DeleteSD(Task):
         def normal_rows(mb):
             """This rank's rows of one microbatch's normal latent draw."""
             return rank_rows(torch.randn((mb, latent_hw, latent_hw, vae_cfg.latent_channels),
-                                         generator=gen, device=self.device))
+                                         generator=gen, device=self.device), mesh=self.mesh)
 
         def latents_of(streams):
             """The step's [A, mb, h, w, C] latents of both streams: the
             global batch's draws, of which this rank keeps its rows."""
             A, mb = streams["all"].shape[:2]
-            flip = (rank_rows(torch.rand((A, bs), generator=gen, device=self.device), 1) < 0.5
+            flip = (rank_rows(torch.rand((A, bs), generator=gen, device=self.device), 1,
+                              self.mesh) < 0.5
                     if random_flip else None)
             out = {}
             for k in ("all", "deletion"):
@@ -244,7 +245,7 @@ class DeleteSD(Task):
             return out
 
         keep_loader = BatchLoader(keep_src, make_rank_sampler(InfiniteSampler, len(keep_imgs),
-                                                              seed=seed), bs_local)
+                                                              seed=seed, mesh=self.mesh), bs_local)
         forget_loader = BatchLoader(mem_src, RepeatedSampler(len(mem_imgs),
                                                              training_steps * accum * bs_local),
                                     bs_local)

@@ -94,18 +94,20 @@ class DeleteTShirt(Task):
         bs = int(cfg.train_batch_size)
         seed = int(cfg.random_seed)
         # Per-rank stripes of both streams (siss_tpu/tasks/delete_tshirt.py:91-98).
-        bs_local = process_batch_slice(bs)
-        keep_loader = BatchLoader(dataset_all, make_rank_sampler(InfiniteSampler, len(dataset_all),
-                                                                 seed=seed), bs_local)
+        bs_local = process_batch_slice(bs, self.mesh)
+        keep_loader = BatchLoader(dataset_all,
+                                  make_rank_sampler(InfiniteSampler, len(dataset_all), seed=seed,
+                                                    mesh=self.mesh), bs_local)
         forget_loader = BatchLoader(dataset_deletion,
                                     make_rank_sampler(InfiniteSampler, len(dataset_deletion),
-                                                      seed=seed + 1), bs_local)
+                                                      seed=seed + 1, mesh=self.mesh), bs_local)
 
         evaluator = Evaluator(unet_eps_apply, schedule,
                               (ucfg.sample_size, ucfg.sample_size, ucfg.in_channels),
                               num_inference_steps=int(cfg.pipeline.num_inference_steps),
                               random_seed=seed, solver=str(cfg.pipeline.get("solver", "ddpm")),
-                              injection_steps=int(cfg.pipeline.get("injection_steps", 10)))
+                              injection_steps=int(cfg.pipeline.get("injection_steps", 10)),
+                              mesh=self.mesh)
         # The canonical t-shirt: from its file if present, else the first
         # forget image (synthetic data).
         tshirt_path = str((metrics_cfg.get("classifier") or {}).get("tshirt_path", ""))

@@ -48,7 +48,8 @@ class TrainUnconditional(Task):
 
         def one_step(batch):
             if random_flip:  # horizontal flip, the reference's torchvision transform
-                flip = rank_rows(torch.rand((bs, 1, 1, 1), generator=gen, device=self.device)) < 0.5
+                flip = rank_rows(torch.rand((bs, 1, 1, 1), generator=gen, device=self.device),
+                                 mesh=self.mesh) < 0.5
                 batch = torch.where(flip, batch.flip(2), batch)
             return step_fn(state, batch, gen)[1]
 
@@ -65,10 +66,10 @@ class TrainUnconditional(Task):
                               (ucfg.sample_size, ucfg.sample_size, ucfg.in_channels),
                               num_inference_steps=int(cfg.pipeline.num_inference_steps),
                               random_seed=int(cfg.random_seed),
-                              solver=str(cfg.pipeline.get("solver", "ddpm")))
+                              solver=str(cfg.pipeline.get("solver", "ddpm")), mesh=self.mesh)
         loader = BatchLoader(dataset, make_rank_sampler(InfiniteSampler, len(dataset),
-                                                        seed=int(cfg.random_seed)),
-                             process_batch_slice(bs), skip_batches=global_step)
+                                                        seed=int(cfg.random_seed), mesh=self.mesh),
+                             process_batch_slice(bs, self.mesh), skip_batches=global_step)
         it = iter(loader)
         guard = PreemptionGuard().install()
         t_last = time.time()

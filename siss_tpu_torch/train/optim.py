@@ -139,11 +139,12 @@ class Adafactor(torch.optim.Optimizer):
     7. p −= the result.
 
     With a ``sharding`` (``parallel.fsdp``), a parameter split over the
-    ``fsdp`` ranks is this rank's block of it: ``factored_dims`` reads its
-    whole shape, and each mean over the split dimension, the update's RMS
-    and the parameter's RMS are sums of the ranks' partial sums. Those are
-    all-reduced in two rounds for all split parameters at once (the
-    factored means and the parameter's RMS, then the update's RMS).
+    ``fsdp`` or the ``tensor`` ranks is this rank's block of it:
+    ``factored_dims`` reads its whole shape, and each mean over the split
+    dimension, the update's RMS and the parameter's RMS are sums of the
+    ranks' partial sums. Those are all-reduced in two rounds for all the
+    parameters split over one axis at once (the factored means and the
+    parameter's RMS, then the update's RMS).
     """
 
     def __init__(self, params, lr: float, decay_rate: float = 0.8, eps: float = 1e-30,
@@ -214,15 +215,16 @@ class Adafactor(torch.optim.Optimizer):
                     u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
                 p_rms = p.float().square().mean().sqrt() if scale else None
                 self._apply(p, u, u.square().mean().sqrt(), p_rms, group)
-            if split:
-                self._step_split(split, group)
+            for axis in ("fsdp", "tensor"):
+                recs = [r for r in split if self.sharding.split_of(r.p)[0] == axis]
+                if recs:
+                    self._step_split(recs, group, self.sharding.axis_group(axis)[2])
 
-    def _step_split(self, recs, group: dict) -> None:
-        """``step`` for the split parameters: local partial sums, one
-        all-reduce of all of them, the updates, one all-reduce of their
-        squared sums, the rest."""
+    def _step_split(self, recs, group: dict, ranks) -> None:
+        """``step`` for the parameters split over the process group
+        ``ranks``: local partial sums, one all-reduce of all of them, the
+        updates, one all-reduce of their squared sums, the rest."""
         eps, scale = group["eps"], group["multiply_by_parameter_scale"]
-        fsdp_group = self.sharding.mesh.fsdp_group
         sums = []
         for r in recs:
             g2 = r.g * r.g + eps
@@ -241,7 +243,7 @@ class Adafactor(torch.optim.Optimizer):
             if scale:
                 r.p_sq = r.p.float().square().sum()
                 sums.append(r.p_sq)
-        all_reduce_(sums, group=fsdp_group)
+        all_reduce_(sums, group=ranks)
         for r in recs:
             if r.dims is not None:
                 d1, d0 = r.dims
@@ -259,7 +261,7 @@ class Adafactor(torch.optim.Optimizer):
                 row = (r.st["v_row"] / row_mean) ** -0.5
                 r.u = r.g * row.unsqueeze(d0) * (r.st["v_col"] ** -0.5).unsqueeze(d1)
             r.u_sq = r.u.square().sum()
-        all_reduce_([r.u_sq for r in recs], group=fsdp_group)
+        all_reduce_([r.u_sq for r in recs], group=ranks)
         for r in recs:
             n = math.prod(r.shape)
             p_rms = (r.p_sq / n).sqrt() if scale else None

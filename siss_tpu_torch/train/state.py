@@ -6,8 +6,8 @@ copy of each on the card.
 
 The state knows how its model is laid out over the ranks (``sharding``, a
 ``parallel.fsdp.Sharding``; by default nothing split, every rank on the
-``data`` axis). Under an ``fsdp`` axis the model's parameters, the
-optimizer's state and the EMA are this rank's blocks; ``state_dict`` and
+``data`` axis). Under an ``fsdp`` or a ``tensor`` axis the model's
+parameters, the optimizer's state and the EMA are this rank's blocks; ``state_dict`` and
 ``load_state_dict`` gather and split them, so a checkpoint has the
 one-process format whatever the mesh, as orbax restores global arrays into
 any sharding.
@@ -57,8 +57,8 @@ class TrainState:
         return dict(zip(sh.names, sh.gather_host(self.ema.params, sh.dims)))
 
     def _optimizer_layout(self, state: Dict[int, Dict[str, Any]]):
-        """(index, key, split dim) of each split tensor of an optimizer
-        state dict's ``state``."""
+        """(index, key, split dim, axis, chunks) of each split tensor of an
+        optimizer state dict's ``state``."""
         sh = self.sharding
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         out = []
@@ -66,11 +66,12 @@ class TrainState:
             dim, shape = sh.layout(params[idx])
             if dim is None:
                 continue
+            axis, chunks = sh.split_of(params[idx])
             for key, value in state[idx].items():
                 if isinstance(value, torch.Tensor):
                     split = state_split_dim(key, value, dim, shape)
                     if split is not None:
-                        out.append((idx, key, split))
+                        out.append((idx, key, split, axis, chunks))
         return out
 
     def state_dict(self) -> Dict[str, Any]:
@@ -81,9 +82,10 @@ class TrainState:
         layout = self._optimizer_layout(opt["state"])
         if layout:
             state = {idx: dict(st) for idx, st in opt["state"].items()}
-            whole = self.sharding.gather_host([state[i][k] for i, k, _ in layout],
-                                              [d for _, _, d in layout])
-            for (i, k, _), t in zip(layout, whole):
+            _, _, dims, axes, chunks = (list(col) for col in zip(*layout))
+            whole = self.sharding.gather_host([state[i][k] for i, k, *_ in layout], dims, axes,
+                                              chunks)
+            for (i, k, *_), t in zip(layout, whole):
                 state[i][k] = t
             opt = {**opt, "state": state}
         ema = None if self.ema is None else {"params": self.ema_state_dict(), "step": self.ema.step}
@@ -98,8 +100,8 @@ class TrainState:
         layout = self._optimizer_layout(opt["state"])
         if layout:
             state = {idx: dict(st) for idx, st in opt["state"].items()}
-            for i, k, d in layout:
-                state[i][k] = sh.take(state[i][k], d).clone()
+            for i, k, d, axis, chunks in layout:
+                state[i][k] = sh.take(state[i][k], d, axis, chunks).clone()
             opt = {**opt, "state": state}
         self.optimizer.load_state_dict(opt)
         self.step = int(sd["step"])
@@ -107,8 +109,9 @@ class TrainState:
             raise ValueError("the checkpoint's EMA does not match this state's use_ema")
         if self.ema is not None:
             with torch.no_grad():
-                for e, name, dim in zip(self.ema.params, sh.names, sh.dims):
-                    e.copy_(sh.take(sd["ema"]["params"][name], dim))
+                for e, name, dim, axis, chunks in zip(self.ema.params, sh.names, sh.dims,
+                                                      sh.axes, sh.chunks):
+                    e.copy_(sh.take(sd["ema"]["params"][name], dim, axis, chunks))
             self.ema.step = int(sd["ema"]["step"])
 
     def held_bytes(self) -> Dict[str, int]:

@@ -45,7 +45,10 @@ batch is its block of the global batch (``rank_rows``), every rank draws
 the global batch's randomness from its generator and keeps its rows, the
 microbatch divisor is the global microbatch, and the accumulated g_x and
 g_a are all-reduced (SUM) once each before the norms, the surgery and the
-clip: the reference's surgery after the DDP all-reduce. The step's
+clip: the reference's surgery after the DDP all-reduce. With accumulators
+below fp32 (``grad_accum_dtype``) each microbatch's two trees are summed
+over the data ranks in their own dtype before they are rounded into the
+accumulators, as JAX rounds the whole batch's gradient. The step's
 statistics are computed from every rank's per-sample values, so they are
 the one-process statistics of the global batch. The model is not wrapped in
 ``DistributedDataParallel``: its reducer fires on ``.grad`` accumulation and
@@ -63,6 +66,17 @@ accumulators and sums those over ``data`` after the last microbatch; and
 forms ‖g_x‖², ‖g_a‖², ⟨g_x, g_a⟩ and the clip's norm from partial sums over
 the blocks, each whole leaf counted once (``Sharding.sum_leaves``). The
 combine, the clip, the optimizer and the EMA run on the blocks.
+
+The ``tensor`` axis (``parallel.tensor``; the JAX package's ``_tp_spec``
+placement): the model is this rank's local model, which computes on its
+blocks of the Megatron-role parameters (never gathered) and all-reduces
+each block's partial output in its forward. The ranks of a tensor group
+take the same rows of the batch (``rank_rows`` by the mesh's batch
+coordinate). Their pulled gradients are their blocks' own, and the whole
+leaves' are the whole gradients, equal on every tensor rank, but for the
+whole biases a split layer uses only in its slice, which ``scatter_add_``
+sums over the tensor ranks; the norms and the clip sum the blocks' parts
+over the tensor ranks and count each whole leaf once.
 """
 
 from __future__ import annotations
@@ -83,7 +97,7 @@ from siss_tpu_torch.losses.deletion import (
 )
 from siss_tpu_torch.ops.batched import contiguous_norm_inputs
 from siss_tpu_torch.ops.siss import siss_weighted_sums
-from siss_tpu_torch.parallel import all_reduce_mean, gather_rows, rank_rows, world_size
+from siss_tpu_torch.parallel import all_reduce_mean, gather_rows, rank_rows
 from siss_tpu_torch.parallel.fsdp import Sharding
 from siss_tpu_torch.train.ema import ema_update
 from siss_tpu_torch.train.state import TrainState
@@ -239,14 +253,15 @@ def _working_params(model: torch.nn.Module, sharding: Sharding, dtype: Optional[
     ``call(fn)`` that runs ``fn(model)`` with the model computing from
     them): the parameters themselves, or, when some are split over the
     ``fsdp`` ranks or ``dtype`` casts them, the whole parameters gathered
-    (in ``dtype``; collective). A model that computes in fp32 sees cast
-    copies upcast again, as flax promotes them."""
+    (in ``dtype``; collective). Blocks split over the ``tensor`` ranks are
+    never gathered: the local model computes on them. A model that
+    computes in fp32 sees cast copies upcast again, as flax promotes them."""
     params = list(model.parameters())
-    if dtype is None and not sharding.sharded:
+    if dtype is None and not sharding.gathers:
         return params, lambda fn: fn(model)
-    whole = sharding.gather(dtype=dtype)
-    leaves = [p if t.dtype == p.dtype and dim is None else t.requires_grad_()
-              for p, t, dim in zip(params, whole, sharding.dims)]
+    whole = sharding.gather(dtype=dtype, axes=("fsdp",))
+    leaves = [p if t.dtype == p.dtype and axis != "fsdp" else t.requires_grad_()
+              for p, t, axis in zip(params, whole, sharding.axes)]
     compute = getattr(model, "dtype", torch.float32)
     swapped = {f"model.{name}": c if c.dtype == compute else c.to(p.dtype)
                for name, p, c in zip(sharding.names, params, leaves)}
@@ -282,7 +297,6 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
     draw_name = LOSS_DRAWS.get(cfg.loss_fn)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
     cast_dtype = getattr(torch, cfg.param_cast_dtype) if cfg.param_cast_dtype else None
-    n_ranks = world_size()
 
     def noises(dr):
         """(the loss's noise, the noise that forms x_t) of one microbatch."""
@@ -375,8 +389,10 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         dyn_scalars = dyn_scalars or {}
         keep_all, forget_all = batch["all"], batch["deletion"]
         cond_all = batch.get("conditioning")
+        model, sharding = state.model, state.sharding
+        mesh = sharding.mesh
         A, mb = keep_all.shape[:2]
-        mb *= n_ranks  # the global microbatch
+        mb *= mesh.batch_ranks  # the global microbatch
         if draws is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or explicit draws")
@@ -385,13 +401,12 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
                                                uniform_target=cfg.loss_fn == "erasediff",
                                                noise_offset=cfg.noise_offset > 0.0,
                                                input_perturbation=cfg.input_perturbation > 0.0)
-        draws = {k: rank_rows(v, axis=1) for k, v in draws.items()}
+        draws = {k: rank_rows(v, axis=1, mesh=mesh) for k, v in draws.items()}
         # [A] scalars vary per microbatch (the task decays superfactor once
         # per microbatch); other scalars hold for every microbatch.
         per_mb = {k for k, v in dyn_scalars.items()
                   if getattr(v, "ndim", 0) >= 1 and v.shape[0] == A}
 
-        model, sharding = state.model, state.sharding
         # The whole parameters (gathered once, a step) live through every pull.
         grad_of, call = _working_params(model, sharding, cast_dtype)
         g_x_acc = sharding.zeros(acc_dtype)
@@ -411,14 +426,15 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             for k, v in stats.items():
                 stats_mb.setdefault(k, []).append(v)
         del grad_of, call
-        # Sum over the data ranks (one all-reduce of each tree), then the mean
-        # over microbatches (Accelerate divides by accumulation steps).
-        sharding.sum_over_data_(g_x_acc)
+        # Sum over the data ranks, then the mean over microbatches
+        # (Accelerate divides by accumulation steps).
+        sharding.finish_(g_x_acc)
         torch._foreach_div_(g_x_acc, A)
 
         # Every rank's per-sample values ([stat, A, mb]), in one all-reduce.
         names = list(stats_mb)
-        per_sample = gather_rows(torch.stack([torch.stack(stats_mb[k]) for k in names]), axis=2)
+        per_sample = gather_rows(torch.stack([torch.stack(stats_mb[k]) for k in names]), axis=2,
+                                 mesh=mesh)
         metrics = {}
         for k, v in zip(names, per_sample):
             metrics.update(_tensor_stats(v, k))
@@ -426,7 +442,7 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
         if cfg.is_scalar_path:
             final, pre_clip_norm = clip_by_global_norm(g_x_acc, cfg.max_grad_norm, sharding)
         else:
-            sharding.sum_over_data_(g_a_acc)
+            sharding.finish_(g_a_acc)
             torch._foreach_div_(g_a_acc, A)
             final, pre_clip_norm = _surgery(cfg, sharding, g_x_acc, g_a_acc, metrics)
         metrics["gradient/pre_clip_norm"] = pre_clip_norm
@@ -517,10 +533,12 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
     norm, as the unlearning step does."""
     if prediction_type not in ("epsilon", "sample"):
         raise ValueError(prediction_type)
-    n_ranks = world_size()
 
     def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None):
+        sharding = state.sharding
+        mesh = sharding.mesh
+        n_ranks = mesh.batch_ranks
         if draws is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or explicit draws")
@@ -529,8 +547,7 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
                                           dtype=batch.dtype, device=batch.device),
                      "t": torch.randint(0, schedule.num_train_timesteps, (B,),
                                         generator=generator, device=batch.device)}
-        noise, t = rank_rows(draws["noise"]), rank_rows(draws["t"])
-        sharding = state.sharding
+        noise, t = rank_rows(draws["noise"], mesh=mesh), rank_rows(draws["t"], mesh=mesh)
         grad_of, call = _working_params(state.model, sharding, None)
 
         def loss_and_grads(model):

@@ -9,7 +9,9 @@ Two worlds (tests/torch_fsdp_worker.py, spawned once for the module, side
 by side): ``data=1 × fsdp=2`` on two ranks and ``data=2 × fsdp=2`` on four.
 Each runs every case of tests/torch_fsdp_cases.py (fused SISS with AdamW and
 EMA, unfused SISS, EraseDiff, NegGrad (the scalar path), the batched dual
-backward, Adafactor with EMA; the pretrain step) on its rows of each global
+backward, Adafactor with EMA; on the tiny conditional UNet the flash path,
+bf16 ``param_cast_dtype``, bf16 ``grad_accum_dtype`` and
+``remat_policy=dots``; the pretrain step) on its rows of each global
 batch. Checks:
 
 (b) the ranks' gathered parameters and EMA are bit for bit equal; against
@@ -18,7 +20,9 @@ batch. Checks:
     after SGD, atol 0.25·lr after AdamW or Adafactor, metrics rtol 1e-5,
     importance weights rtol 1e-3 / atol 1e-6), and against the JAX step at
     the one-process parity tolerances (rtol 1e-4; params atol 1e-6 after
-    SGD, 0.25·lr after AdamW or Adafactor);
+    SGD, 0.25·lr after AdamW or Adafactor); the bf16 cases' norms rtol 2⁻⁷
+    and each parameter's update within 2⁻⁷ of its tensor's largest update,
+    against both (tests/test_torch_sd_options.py);
 (c) a whole leaf that carries ~99.9% of ‖g_a‖ is counted once in every sum
     of the surgery (‖g_x‖, ‖g_a‖, ⟨g_x, g_a⟩, the clip's norm): rtol 1e-6
     against one process, where counting it R times is off by ~√R;
@@ -30,7 +34,10 @@ batch. Checks:
     their blocks, bit for bit, and the next step equals one process's as (b);
 (f) samples and a denoising injection from the gathered UNet equal one
     process's within 1e-5;
-and the groups, the gather and the reduce-scatter along each dimension.
+and the groups, the gather and the reduce-scatter along each dimension, in
+both forms: the all-reduce form that gloo runs on CUDA tensors and the NCCL
+form (``all_gather_into_tensor``, ``reduce_scatter_tensor``), selected on
+the gloo ranks by patching ``multihost._native_collectives``.
 """
 
 import functools
@@ -68,7 +75,7 @@ from siss_tpu_torch.models import UNet2D, UNet2DCondition, UNet2DConditionConfig
 from siss_tpu_torch.parallel import fsdp_dim, shard_module
 from siss_tpu_torch.train.step import DeletionStepConfig, _surgery, global_norm
 from siss_tpu_torch.utils import CheckpointManager
-from siss_tpu_torch.utils.convert import torch_key
+from siss_tpu_torch.utils.convert import params_from_flax, torch_key
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -145,16 +152,32 @@ def test_fsdp_dim_matches_jax_on_every_leaf(model, n):
 
 def _jax_draws(name):
     _, steps, kw = cases.CASES[name]
-    return [objectives.jax_draws(k, kw["loss_fn"], (cases.HW, cases.HW, 3))
-            for k in JAX_KEYS[:steps]]
+    shape = (cases.COND_HW, cases.COND_HW, cases.COND_C) if cases.is_cond(name) else (
+        cases.HW, cases.HW, 3)
+    return [objectives.jax_draws(k, kw["loss_fn"], shape) for k in JAX_KEYS[:steps]]
 
 
-def _jax_run(name, fmodel, fparams, inputs):
+def _flax_cond():
+    """(flax module, params) of the conditional UNet's cases (einsum: JAX's
+    flash kernel runs only on a TPU)."""
+    fmodel = FlaxCondUNet(FlaxCondConfig(**dict(cases.COND, attention_impl="einsum")))
+    return fmodel, jax.jit(functools.partial(fmodel.init_params, batch_size=cases.MB,
+                                             context_len=cases.CTX[0]))(jax.random.PRNGKey(7))
+
+
+def _jax_run(name, flax_models, inputs):
     """The JAX step of a case on the global batch: (state, metrics)."""
     opt_cfg, steps, kw = cases.CASES[name]
+    fmodel, fparams = flax_models["cond" if cases.is_cond(name) else "unet"]
+    if cases.is_cond(name):
+        def apply(p, x, t, c):
+            return fmodel.apply({"params": p}, x, t, c)
+    else:
+        def apply(p, x, t, c):
+            return fmodel.apply({"params": p}, x, t)
     tx = jax_build_optimizer(dict(opt_cfg))
-    jstep = jax.jit(jax_build_step(lambda p, x, t, c: fmodel.apply({"params": p}, x, t),
-                                   JaxSchedule.create(1000, "linear"), tx, JaxStepConfig(**kw)))
+    jstep = jax.jit(jax_build_step(apply, JaxSchedule.create(1000, "linear"), tx,
+                                   JaxStepConfig(**kw)))
     jstate = JaxState.create(fparams, tx, use_ema=kw.get("use_ema", False))
     batch = {k: jnp.asarray(v.numpy()) for k, v in inputs[name]["batch"].items()}
     metrics = []
@@ -172,13 +195,13 @@ def _jax_pretrain(fmodel, fparams, inputs):
     return jstep(JaxState.create(fparams, tx), batch, PRETRAIN_KEY)
 
 
-def _references(inputs, fmodel, fparams):
+def _references(inputs, flax_models):
     """Everything the ranks are held to: one process's and JAX's runs (the
     JAX steps compiled in threads: XLA's compiler releases the GIL)."""
     with ThreadPoolExecutor(4) as pool:
-        jax_runs = {("jax", name): pool.submit(_jax_run, name, fmodel, fparams, inputs)
+        jax_runs = {("jax", name): pool.submit(_jax_run, name, flax_models, inputs)
                     for name in cases.CASES}
-        jax_runs["jax", "pretrain"] = pool.submit(_jax_pretrain, fmodel, fparams, inputs)
+        jax_runs["jax", "pretrain"] = pool.submit(_jax_pretrain, *flax_models["unet"], inputs)
         refs = {name: cases.run_case(name, inputs) for name in cases.CASES}
         for name in cases.CHECKPOINT_CASES:
             refs["resumed", name] = cases.run_case(name, inputs, start=1,
@@ -196,9 +219,12 @@ def setup(tmp_path_factory):
     The references are computed while the ranks run."""
     d = tmp_path_factory.mktemp("fsdp")
     fmodel, fparams, np_params = flax_unet(cases.FSDP_UNET, seed=2)
+    flax_models = {"unet": (fmodel, fparams), "cond": _flax_cond()}
     draws = {name: _jax_draws(name) for name in cases.CASES}
     draws["pretrain"] = pretrain.jax_draws(PRETRAIN_KEY, (cases.MB, cases.HW, cases.HW, 3))
-    inputs = cases.make_inputs(torch_unet(cases.FSDP_UNET, np_params).state_dict(), draws)
+    cond_state = params_from_flax(jax.tree.map(np.asarray, flax_models["cond"][1]))
+    inputs = cases.make_inputs(torch_unet(cases.FSDP_UNET, np_params).state_dict(), draws,
+                               cond_state)
     inputs["resume"] = {name: cases.run_case(name, inputs, stop=1)["state"]
                         for name in cases.CHECKPOINT_CASES}
     torch.save(inputs, d / "inputs.pt")
@@ -212,7 +238,7 @@ def setup(tmp_path_factory):
                 [sys.executable, os.path.join(HERE, "torch_fsdp_worker.py"), str(r), str(n),
                  str(data), str(fsdp), str(d / world)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True, env=env) for r in range(n)]
-        refs = _references(inputs, fmodel, fparams)
+        refs = _references(inputs, flax_models)
         outs = {world: [p.communicate(timeout=JOIN_TIMEOUT_S)[0] for p in ps]
                 for world, ps in procs.items()}
     except subprocess.TimeoutExpired:
@@ -247,6 +273,23 @@ def test_mesh_groups(setup):
             row = r // fsdp * fsdp
             assert c["fsdp_members"] == sum(2.0 ** q for q in range(row, row + fsdp))
             assert c["data_members"] == sum(2.0 ** (q * fsdp + r % fsdp) for q in range(data))
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_nccl_form_equals_the_all_reduce_form(setup, world):
+    """The NCCL form of the gather and the reduce-scatter
+    (``all_gather_into_tensor``, ``reduce_scatter_tensor``: the branch that
+    runs on the card), chosen through ``multihost._native_collectives`` on
+    gloo ranks, gives the all-reduce form's tensors bit for bit."""
+    _, _, results, _ = setup
+    for res in results[world]:
+        a, b = res["collectives"], res["native"]
+        assert a.keys() == b.keys()
+        for k in ("gathered", "scattered"):
+            assert len(a[k]) == len(b[k]) == len(cases.COLLECTIVE_SHAPES) + (k == "scattered")
+            assert all(torch.equal(x, y) for x, y in zip(a[k], b[k])), k
+        assert torch.equal(a["scattered_bf16"], b["scattered_bf16"])
+        assert a["gathered_channels_last"] == b["gathered_channels_last"]
 
 
 @pytest.mark.parametrize("world", list(WORLDS))
@@ -313,11 +356,29 @@ def test_ranks_stay_bit_equal(setup, world, name):
                for res in ranks)
 
 
+NORMS = ("gradient/norm_loss_x", "gradient/norm_loss_a", "gradient/pre_clip_norm")
+
+
+def _assert_bf16_step_close(got, metrics, params, p0):
+    """A bf16 case's one SGD step against ``metrics`` and ``params``: the
+    norms rtol 2⁻⁷, each parameter's update within 2⁻⁷ of its tensor's
+    largest update (tests/test_torch_sd_options.py: two bf16 ulps)."""
+    for k in NORMS:
+        np.testing.assert_allclose(got["metrics"][0][k], metrics[k], rtol=2 ** -7, err_msg=k)
+    assert got["model"].keys() == params.keys()
+    for k, want in params.items():
+        du_got, du_want = got["model"][k] - p0[k], want - p0[k]
+        assert (du_got - du_want).abs().max() <= 2 ** -7 * du_want.abs().max(), k
+
+
 @pytest.mark.parametrize("world,name", CASE_WORLDS)
 def test_fsdp_equals_one_process(setup, world, name):
-    _, refs, results, _ = setup
+    inputs, refs, results, _ = setup
     one = refs[name]
     got = results[world][0]["steps"][name]
+    if name in cases.BF16_CASES:
+        _assert_bf16_step_close(got, one["metrics"][0], one["state"]["model"], inputs["cond"])
+        return
     for m, want in zip(got["metrics"], one["metrics"]):
         assert_metrics_close(m, want, rtol=1e-5)
     opt_cfg, steps, _ = cases.CASES[name]
@@ -330,9 +391,14 @@ def test_fsdp_equals_one_process(setup, world, name):
 
 @pytest.mark.parametrize("world,name", CASE_WORLDS)
 def test_fsdp_matches_jax(setup, world, name):
-    _, refs, results, _ = setup
+    inputs, refs, results, _ = setup
     jstate, jmetrics = refs["jax", name]
     got = results[world][0]["steps"][name]
+    if name in cases.BF16_CASES:
+        _assert_bf16_step_close(got, jmetrics[0],
+                                params_from_flax(jax.tree.map(np.asarray, jstate.params)),
+                                inputs["cond"])
+        return
     for m, jm in zip(got["metrics"], jmetrics):
         assert_metrics_close(m, jm, rtol=1e-4)
     opt_cfg = cases.CASES[name][0]

@@ -45,7 +45,8 @@ def test_imports_no_jax():
             "siss_tpu_torch.metrics.sscd", "siss_tpu_torch.metrics.clip_iqa",
             "siss_tpu_torch.ops.batched", "siss_tpu_torch.parallel",
             "siss_tpu_torch.parallel.distributed", "siss_tpu_torch.parallel.mesh",
-            "siss_tpu_torch.parallel.multihost"} <= set(mods)
+            "siss_tpu_torch.parallel.multihost", "siss_tpu_torch.parallel.fsdp",
+            "siss_tpu_torch.parallel.tensor"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

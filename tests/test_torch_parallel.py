@@ -112,13 +112,14 @@ def test_mesh_resolve_matches_jax(data, fsdp, tensor, n):
 
 @pytest.mark.parametrize("mesh,item", [(MeshConfig(fsdp=2), "12b"), (MeshConfig(tensor=2), "12c")])
 def test_unported_axes_raise(mesh, item):
-    """The tensor axis (item 12c) raises; the fsdp axis (item 12b, ported)
-    resolves."""
+    """The fsdp axis (item 12b) and the tensor axis at fsdp 1 (item 12c(i))
+    are ported and resolve; the two together (item 12c(ii)) raise."""
     if item == "12b":
         assert resolve_mesh(mesh, 4) == MeshConfig(2, 2, 1)
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            resolve_mesh(mesh, 4)
+        assert resolve_mesh(mesh, 4) == MeshConfig(2, 1, 2)
+        with pytest.raises(NotImplementedError, match=re.escape("item 12c(ii)")):
+            resolve_mesh(MeshConfig(fsdp=2, tensor=2), 4)
     assert resolve_mesh(MeshConfig(), 4) == MeshConfig(4, 1, 1)
 
 

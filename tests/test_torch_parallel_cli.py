@@ -13,7 +13,8 @@ same forget rows (their forget stream is not striped, as in JAX); the
 t-shirt run logs a one-process run's keys, and ``-m siss_tpu_torch.main``
 on two ranks resumes it from its checkpoint; an SD batch the ranks do not
 divide raises. With ``mesh.fsdp=2`` (a t-shirt UNet at 128 channels, wide
-enough to split), the ranks print the mesh, save one checkpoint of whole
+enough to split), and with ``mesh.tensor=2`` (the tiny t-shirt UNet with an
+attention level), the ranks print the mesh, save one checkpoint of whole
 tensors that one process loads, and log a one-process run's keys.
 """
 
@@ -242,5 +243,41 @@ def test_delete_tshirt_fsdp_on_two_ranks(npz, tmp_path):
     for i, st in state["optimizer"]["state"].items():
         assert st["exp_avg"].shape == st["exp_avg_sq"].shape == shapes[i]
     (task,) = cli.main(delete_args(npz, tmp_path / "one", "unused", *wide))
+    keys = [set().union(*map(set, rows_of(r))) for r in (task.cfg.output_dir, run)]
+    assert keys[0] == keys[1]
+
+
+def test_delete_tshirt_tensor_on_two_ranks(npz, tmp_path):
+    """``mesh.tensor=2``: each rank runs its block of every resnet's and
+    attention block's channels; one run directory, a whole checkpoint that
+    one process loads, a one-process run's keys."""
+    attn = ["unet.down_block_types=[DownBlock2D,AttnDownBlock2D]",
+            "unet.up_block_types=[AttnUpBlock2D,UpBlock2D]", "checkpoint_path=null"]
+    args = delete_args(npz, tmp_path / "out", "unused", *attn, "mesh.tensor=2")
+    (tmp_path / "record").mkdir()
+    rc, out = launch(WORKER, str(tmp_path / "record"), *args)
+    assert rc == 0, out[-4000:]
+    assert out.count("mesh=data 1 x fsdp 1 x tensor 2") == 2
+    records = [torch.load(tmp_path / "record" / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    assert_equal_params(records)
+    # the tensor ranks share one block of the batch: both draw the one-rank
+    # keep stream (3 steps × 4 rows; a loader's prefetch may draw further)
+    stream = list(itertools.islice(iter(InfiniteSampler(80, seed=46)), 3 * 4))
+    assert [rec["indices"][0][:3 * 4] for rec in records] == [stream, stream]
+    run = only_run(tmp_path / "out")
+    assert checkpoints(run) == ["checkpoint-3"]
+    assert sorted(r["_step"] for r in rows_of(run) if "loss_x/mean" in r) == [1, 2, 3]
+    mgr = CheckpointManager(str(run))
+    unet = UNet2D(UNet2DConfig(**{**TSHIRT_28, "block_out_channels": (16, 32),
+                                  "down_block_types": ("DownBlock2D", "AttnDownBlock2D"),
+                                  "up_block_types": ("AttnUpBlock2D", "UpBlock2D")}))
+    unet.load_state_dict(mgr.restore_item("latest", "unet"))
+    for k, v in unet.state_dict().items():
+        assert torch.equal(v, records[0]["params"][k]), k
+    state = mgr.restore_item("latest", "state")
+    shapes = [p.shape for p in unet.parameters()]
+    for i, st in state["optimizer"]["state"].items():
+        assert st["exp_avg"].shape == st["exp_avg_sq"].shape == shapes[i]
+    (task,) = cli.main(delete_args(npz, tmp_path / "one", "unused", *attn))
     keys = [set().union(*map(set, rows_of(r))) for r in (task.cfg.output_dir, run)]
     assert keys[0] == keys[1]

@@ -8,6 +8,7 @@ the preemption stop."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -228,8 +229,10 @@ def test_preemption_saves_and_stops(npz, base_run, tmp_path):
 
 def test_unported_options_raise(npz, base_run, tmp_path):
     # The likelihood metric is ported (tests/test_torch_tshirt_metrics.py).
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        cli.main(delete_args(npz, tmp_path, base_run, "mesh.tensor=2"))
+    # The tensor axis is ported at fsdp 1 (tests/test_torch_tensor.py); with
+    # an fsdp axis beside it (item 12c(ii)) it is not.
+    with pytest.raises(NotImplementedError, match=re.escape("item 12c(ii)")):
+        cli.main(delete_args(npz, tmp_path, base_run, "mesh.fsdp=2", "mesh.tensor=2"))
 
 
 def test_checkpoint_rotation_latest_and_async(tmp_path):

@@ -9,8 +9,14 @@ one resnet a block and no attention (which keeps the JAX step's compile
 short): 28 of its 112 parameters (95% of its 4.3M elements) reach the 2^16
 elements that ``fsdp_dim`` splits, among them kernels that Adafactor
 factors with the split dimension as the larger factored one (the time
-embedding's first matrix) and as the smaller (the rest). Imports torch
-only, as the workers do not load JAX.
+embedding's first matrix) and as the smaller (the rest). The ``cond_*``
+cases run the tiny conditional UNet at 16² latents with the flash path (the
+kernels' plain versions on the CPU), split at ``min_size`` 1024 (its
+attention, GEGLU and resnet matrices): as it is, with bf16
+``param_cast_dtype`` and ``remat_policy=dots``, and with bf16
+``grad_accum_dtype`` (each JAX step takes ~25 s to compile on the CPU; two
+bf16 knobs in one case round twice, beyond the bf16 rule's two ulps).
+Imports torch only, as the workers do not load JAX.
 """
 
 import numpy as np
@@ -19,10 +25,11 @@ import torch
 from torch_parity import CELEB_LIKE
 from siss_tpu_torch.diffusion import NoiseSchedule
 from siss_tpu_torch.evaluate import Evaluator
-from siss_tpu_torch.models import UNet2D, UNet2DConfig
+from siss_tpu_torch.models import UNet2D, UNet2DCondition, UNet2DConditionConfig, UNet2DConfig
 from siss_tpu_torch.parallel import rank_rows, shard_module
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
-                                  build_optimizer, build_pretrain_step, unet_eps_apply)
+                                  build_optimizer, build_pretrain_step, cond_unet_eps_apply,
+                                  unet_eps_apply)
 from siss_tpu_torch.utils.checkpoint import to_host
 
 A, MB, HW = 2, 4, 8     # accumulation steps, GLOBAL microbatch, image side
@@ -45,25 +52,48 @@ CASES = {
     "simple_neg_del": (SGD, 1, dict(BASE_KW, loss_fn="simple_neg_del")),
     "batched_dual": (SGD, 1, dict(BASE_KW, loss_fn=SISS, batched_dual_backward=True)),
     "adafactor": (ADAFACTOR, 2, dict(BASE_KW, loss_fn=SISS, use_ema=True)),
+    "cond_flash": (SGD, 1, dict(BASE_KW, loss_fn=SISS)),
+    "cond_param_cast_dots": (SGD, 1, dict(BASE_KW, loss_fn=SISS, param_cast_dtype="bfloat16")),
+    "cond_bf16_accum": (SGD, 1, dict(BASE_KW, loss_fn=SISS, grad_accum_dtype="bfloat16")),
 }
+#: The conditional UNet's cases: their bf16 knobs, their model's config.
+COND_HW, COND_C, CTX = 16, 4, (7, 32)
+COND = dict(UNet2DConditionConfig.tiny().__dict__, sample_size=COND_HW, attention_impl="flash")
+COND_MIN_SIZE = 1024
+BF16_CASES = ("cond_param_cast_dots", "cond_bf16_accum")
 #: The cases whose checkpoints go from fsdp ranks to one process and back.
 CHECKPOINT_CASES = ("siss_adamw_ema", "adafactor")
 EVAL_CASES = ("sample_ddpm", "denoise_ddpm")
 
 
+def is_cond(name: str) -> bool:
+    return name.startswith("cond")
+
+
+def weights_of(name: str, inputs: dict) -> dict:
+    """The whole weights a case's model starts from."""
+    return inputs["cond" if is_cond(name) else "unet"]
+
+
 def build_state(name: str, unet_state: dict, mesh=None) -> TrainState:
     """A case's state on ``mesh`` (None: one process), from whole weights."""
     opt_cfg, _, kw = CASES[name]
-    model = UNet2D(UNet2DConfig(**FSDP_UNET))
+    if is_cond(name):
+        remat = (dict(gradient_checkpointing=True, remat_policy="dots")
+                 if name == "cond_param_cast_dots" else {})
+        model = UNet2DCondition(UNet2DConditionConfig(**dict(COND, **remat)))
+    else:
+        model = UNet2D(UNet2DConfig(**FSDP_UNET))
     model.load_state_dict(unet_state)
-    sharding = shard_module(model, mesh)
+    sharding = shard_module(model, mesh, **({"min_size": COND_MIN_SIZE} if is_cond(name) else {}))
     opt, sched = build_optimizer(opt_cfg, model.parameters(), sharding=sharding)
     return TrainState.create(model, opt, sched, use_ema=kw.get("use_ema", False),
                              sharding=sharding)
 
 
 def case_step(name: str):
-    return build_deletion_train_step(unet_eps_apply, NoiseSchedule.create(1000, device="cpu"),
+    return build_deletion_train_step(cond_unet_eps_apply if is_cond(name) else unet_eps_apply,
+                                     NoiseSchedule.create(1000, device="cpu"),
                                      DeletionStepConfig(**CASES[name][2]))
 
 
@@ -91,7 +121,7 @@ def run_case(name: str, inputs: dict, mesh=None, start=0, stop=None, state_dict=
     """Steps ``start``..``stop`` of a case on this rank (from ``state_dict``
     when given): the whole state after them, the metrics of each step, the
     elements held and this rank's blocks."""
-    state = build_state(name, inputs["unet"], mesh)
+    state = build_state(name, weights_of(name, inputs), mesh)
     if state_dict is not None:
         state.load_state_dict(to_host(state_dict))  # loading aliases the optimizer's step
     loaded = blocks(state)
@@ -141,15 +171,19 @@ def run_evaluator(name: str, inputs: dict, mesh=None) -> np.ndarray:
     return ev.denoise_images(whole, inputs["noisy"], 20)
 
 
-def make_inputs(unet_state: dict, draws: dict) -> dict:
-    """The inputs file's content: the UNet's whole weights, each case's
+def make_inputs(unet_state: dict, draws: dict, cond_state: dict) -> dict:
+    """The inputs file's content: the UNets' whole weights, each case's
     global batch (numpy seeds) and ``draws[name]``, the pretrain batch and
     ``draws["pretrain"]``, the noisy injection batch."""
     rng = np.random.default_rng(11)
-    inputs = {"unet": unet_state}
+    inputs = {"unet": unet_state, "cond": cond_state}
     for name in CASES:
-        batch = {k: torch.from_numpy(rng.normal(size=(A, MB, HW, HW, 3)).astype(np.float32))
+        shape = (COND_HW, COND_HW, COND_C) if is_cond(name) else (HW, HW, 3)
+        batch = {k: torch.from_numpy(rng.normal(size=(A, MB) + shape).astype(np.float32))
                  for k in ("all", "deletion")}
+        if is_cond(name):
+            batch["conditioning"] = torch.from_numpy(rng.normal(size=(A, MB) + CTX)
+                                                     .astype(np.float32))
         inputs[name] = {"batch": batch, "draws": draws[name]}
     inputs["pretrain"] = {
         "batch": torch.from_numpy(rng.uniform(-1, 1, size=(MB, HW, HW, 3)).astype(np.float32)),

@@ -23,16 +23,27 @@ import torch_fsdp_cases as cases  # noqa: E402
 from siss_tpu_torch.parallel import (MeshConfig, all_gather_along, all_reduce_sum,  # noqa: E402
                                      destroy_distributed, initialize_distributed,
                                      make_rank_mesh, rank, reduce_scatter_add_, shard_module)
+from siss_tpu_torch.parallel import multihost  # noqa: E402
 from siss_tpu_torch.train.step import DeletionStepConfig, _surgery, global_norm  # noqa: E402
 from siss_tpu_torch.utils import CheckpointManager  # noqa: E402
 
 from torch_fsdp_cases import COLLECTIVE_SHAPES, Leaves, surgery_trees, whole  # noqa: E402
 
 
-def collectives(mesh) -> dict:
+def collectives(mesh, native: bool = False) -> dict:
     """The groups (which ranks share an axis), the gather and the
     reduce-scatter along dims 0, 1 and 3 of contiguous and channels_last
-    tensors in small buckets, a whole leaf in the scatter, bf16."""
+    tensors in small buckets, a whole leaf in the scatter, bf16. With
+    ``native``, through the NCCL form of the gather and the reduce-scatter
+    (``all_gather_into_tensor``, ``reduce_scatter_tensor``), which gloo
+    runs on CPU tensors too."""
+    if native:
+        form = multihost._native_collectives
+        multihost._native_collectives = lambda group: True
+        try:
+            return collectives(mesh)
+        finally:
+            multihost._native_collectives = form
     r = rank()
     out = {"fsdp_rank": mesh.fsdp_rank,
            "fsdp_members": float(all_reduce_sum(torch.tensor([2.0 ** r]), mesh.fsdp_group)),
@@ -98,13 +109,16 @@ def main() -> None:
     mesh = make_rank_mesh(MeshConfig(data=DATA, fsdp=FSDP))
     assert (mesh.data, mesh.fsdp) == (DATA, FSDP)
     inputs = torch.load(os.path.join(DIR, "..", "inputs.pt"), weights_only=False)
-    result = {"collectives": collectives(mesh), "norms": norms(mesh), "steps": {},
-              "resumed": {}, "equal": {}}
+    result = {"collectives": collectives(mesh), "native": collectives(mesh, native=True),
+              "norms": norms(mesh), "steps": {}, "resumed": {}, "equal": {}}
     for name in cases.CASES:
         res = cases.run_case(name, inputs, mesh)
         st = res.pop("state")
-        result["equal"][name] = equal_to_rank0(st["model"]) and (
-            st["ema"] is None or equal_to_rank0(st["ema"]["params"]))
+        # every rank takes part in both broadcasts, whatever the first gives
+        equal = [equal_to_rank0(st["model"])]
+        if st["ema"] is not None:
+            equal.append(equal_to_rank0(st["ema"]["params"]))
+        result["equal"][name] = all(equal)
         if name in cases.CHECKPOINT_CASES:
             CheckpointManager(os.path.join(DIR, "ckpt", name)).save_bundle(
                 len(res["metrics"]), {"state": st})
