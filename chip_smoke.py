@@ -192,19 +192,30 @@ prints no result):
    4 SISS backward launches a step on each, errors against one process's
    fp32 steps on the same cut within (c)'s rule, held bytes exactly one
    process's less half of the split parameters' (parameters 256,333,836),
-   step and activation all-reduce seconds and peak memory printed; (h)
-   phase 8's sd_v1 step with flash at microbatch 1 × 2, 2 steps, on
-   ``data=1 × tensor=2``, from one seed, against one process's bf16 and
-   fp32 steps on the same cut and draws: θ after the last step and every
-   whole parameter equal on the two ranks, equal norms, errors against
-   the fp32 steps within (c)'s rule, on each rank 20 flash forward, 40
-   dK/dV, 40 dQ, 2 reduce and 4 SISS backward launches a step (the flash
-   kernels at 4 local heads), 1,924,824,336 parameter bytes a rank,
-   seconds and peak memory printed; then the bf16 flash kernels at the local heads' shapes (1, 4,
-   4096, 40) and (1, 4, 1024, 80) against their plain versions as in phase
-   4. cuDNN is set deterministic for the phase. NCCL across several cards
-   is not run: the machine has one. Each phase's seconds are printed after
-   it.
+   step and activation all-reduce seconds and peak memory printed; (i)
+   (g) again on four ranks, ``data=1 × fsdp=2 × tensor=2`` (each block of
+   a split layer split once more over fsdp: one image a batch rank),
+   against (g)'s own one-process steps: the same checks, parameters
+   128,849,932 B a rank, each rank's gather, reduce-scatter and
+   activation all-reduce seconds printed; (h) phase 8's sd_v1 step with
+   flash and the SD fast path's Adafactor at microbatch 2 × 1, 2 steps,
+   on ``data=1 × tensor=2``, from one seed, against one process's bf16
+   and fp32 steps on the same cut and draws (each one-process step's
+   norms that are exactly 0 printed beside the sets its samples came
+   from): θ after the last step and every whole parameter equal on the
+   two ranks, equal norms, errors against the fp32 steps within (c)'s
+   rule, on each rank 10 flash forward, 20 dK/dV, 20 dQ, 1 reduce and 2
+   SISS backward launches a step (the flash kernels at 4 local heads),
+   1,924,824,336 parameter bytes a rank, seconds and peak memory printed;
+   then the bf16 flash kernels at the local heads' shapes (2, 4, 4096,
+   40) and (2, 4, 1024, 80) against their plain versions as in phase 4;
+   (j) (h) again on four ranks, ``data=1 × fsdp=2 × tensor=2``, against
+   the same one-process steps: the same checks and launches, 963,165,456
+   parameter bytes a rank, the flash kernels at (1, 4, 4096, 40) and (1,
+   4, 1024, 80). (i) and (j) print their seconds alone. NCCL across
+   several cards is not run: the script needs one card.
+   cuDNN is set deterministic for the phase. Each phase's seconds are
+   printed after it.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
@@ -2063,19 +2074,30 @@ DP_CLI_STEPS = 2
 DP_CLI = (f"training_steps={DP_CLI_STEPS}", "sampling_steps=1000", "eval_images=64",
           "metrics.likelihood=null")
 HELD = ("params", "optimizer", "ema", "accumulators")
-# 9(g)–(h): the tensor axis at tensor 2 on two gloo ranks, global microbatch
-# × accumulation cut to TP_MB × TP_ACCUM (celeb; SD at microbatch 1): every
-# activation all-reduce is staged through the host by gloo.
+# 9(g)–(j): the tensor axis at tensor 2, alone on two gloo ranks ((g), (h))
+# and with fsdp 2 on four ((i), (j)), the celeb step's global microbatch ×
+# accumulation cut to TP_MB × TP_ACCUM and the sd step's to TP_SD_MB ×
+# TP_SD_ACCUM: every activation all-reduce is staged through the host by
+# gloo.
 TP_ACCUM, TP_MB, TP_STEPS = 2, 2, 2
-# Parameter bytes a rank holds at tensor 2 (JAX's placement: 99,179,520 of
+TP_SD_ACCUM, TP_SD_MB = 1, 2
+# The sd step's optimizer there: the SD fast path's Adafactor
+# (configs/delete_sd.yaml:118-133, at the config's learning rate).
+TP_SD_OPTIMIZER = {"_target_": "adafactor", "lr": 1e-5, "weight_decay": 1e-2}
+# Parameter bytes a rank holds (JAX's placement: at tensor 2, 99,179,520 of
 # the celeb UNet's 113,673,219 elements split, 756,629,760 of sd_v1's
-# 859,520,964), and sd_v1's whole.
+# 859,520,964; at fsdp 2 × tensor 2, 32,212,483 and 240,791,364 elements a
+# rank), and sd_v1's whole.
 TP_PARAM_BYTES = {"celeb": 256_333_836, "sd": 1_924_824_336}
+TP_FSDP_PARAM_BYTES = {"celeb": 128_849_932, "sd": 963_165_456}
 SD_PARAM_BYTES = 3_438_083_856
-TP_SD_PER_STEP = {"flash_fwd": 10 * TP_ACCUM, "flash_bwd_dkv": 20 * TP_ACCUM,
-                  "flash_bwd_dq": 20 * TP_ACCUM, "siss_reduce": TP_ACCUM, "siss_bwd": 2 * TP_ACCUM}
-# The local heads' flash shapes on the SD path at tensor 2.
-TP_FLASH_SHAPES = ((1, 4, 4096, 40), (1, 4, 1024, 80))
+TP_SD_PER_STEP = {"flash_fwd": 10 * TP_SD_ACCUM, "flash_bwd_dkv": 20 * TP_SD_ACCUM,
+                  "flash_bwd_dq": 20 * TP_SD_ACCUM, "siss_reduce": TP_SD_ACCUM,
+                  "siss_bwd": 2 * TP_SD_ACCUM}
+# The local heads' flash shapes on the SD path at tensor 2: (h)'s ranks take
+# both images of a microbatch, (j)'s one each.
+TP_FLASH_SHAPES = {"h": ((2, 4, 4096, 40), (2, 4, 1024, 80)),
+                   "j": ((1, 4, 4096, 40), (1, 4, 1024, 80))}
 # scripts/fsdp_memory.py's peaks a rank for the sd_v1 step (global
 # microbatch 2, no accumulation; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6),
 # printed beside 9(h)'s.
@@ -2102,7 +2124,8 @@ def whole_digest(torch, sharding):
     """Each whole (unsplit) parameter's bits summed as integers: equal on
     two ranks exactly when those parameters are, up to a collision."""
     return torch.stack([p.detach().reshape(-1).view(torch.int32).long().sum()
-                        for p, d in zip(sharding.params, sharding.dims) if d is None]).cpu()
+                        for p, lay in zip(sharding.params, sharding.layouts)
+                        if not lay.axes]).cpu()
 
 
 def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS, accum=None, mb=None):
@@ -2132,8 +2155,7 @@ def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS, accum=None, mb=Non
     sharding.zeros = recording_zeros
 
     def flat(tensors):   # not ``gather``, which 9(e) times as the step's
-        whole = sharding.gather_along(list(tensors), sharding.dims, sharding.axes,
-                                      sharding.chunks)
+        whole = sharding.gather_along(list(tensors), sharding.layouts)
         return torch.cat([t.detach().reshape(-1).float() for t in whole]).cpu()
 
     out = {"theta0": flat(sharding.params), "theta": [], "ema": [], "norms": [], "seconds": []}
@@ -2156,25 +2178,33 @@ def dp_steps(torch, dtype, device, mesh=None, steps=DP_STEPS, accum=None, mb=Non
 
 
 def sd_steps(torch, dtype, device, mesh=None):
-    """9(h): TP_STEPS sd_v1 steps (``make_sd_path`` at ``dtype``, flash) at
-    microbatch 1 × TP_ACCUM, split over ``mesh``'s tensor ranks: θ after
-    the last step (whole, flat fp32 on the host), the norms, the
-    synchronised step seconds, the launches, the peak memory, the bytes
-    held and the digest of the whole parameters."""
+    """9(h) and 9(j): TP_STEPS sd_v1 steps (``make_sd_path`` at ``dtype``,
+    flash, Adafactor) at global microbatch TP_SD_MB × TP_SD_ACCUM, split
+    over ``mesh``'s ranks, on this rank's rows: θ after the last step
+    (whole, flat fp32 on the host), the norms, the samples' sets (keep
+    where u > λ) and importance weights of each step, the synchronised step
+    seconds, the launches, the peak memory, the bytes held and the digest of
+    the whole parameters."""
     from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.parallel import rank_rows
     from siss_tpu_torch.profile_step import make_sd_path
     from siss_tpu_torch.train.step import draw_microbatch_randomness
 
-    state, step, _, _ = make_sd_path(device, mesh=mesh, dtype=dtype)
+    state, step, _, _ = make_sd_path(device, mesh=mesh, dtype=dtype, optimizer=TP_SD_OPTIMIZER)
     sharding = state.sharding
     gen = torch.Generator(device=device).manual_seed(9)
-    batch = {k: torch.randn(TP_ACCUM, 1, 64, 64, 4, generator=gen, device=device)
-             for k in ("all", "deletion")}
+    shape = (TP_SD_ACCUM, TP_SD_MB, 64, 64, 4)
+    batch = {k: torch.randn(shape, generator=gen, device=device) for k in ("all", "deletion")}
     prompt = torch.randn(77, 768, generator=gen, device=device)
-    batch["conditioning"] = prompt.expand(TP_ACCUM, 1, *prompt.shape)
-    draws = [draw_microbatch_randomness(gen, TP_ACCUM, 1, (64, 64, 4), 999, 1000, device)
+    batch["conditioning"] = prompt.expand(*shape[:2], *prompt.shape)
+    batch = {k: rank_rows(v, 1, mesh) for k, v in batch.items()}
+    draws = [draw_microbatch_randomness(gen, TP_SD_ACCUM, TP_SD_MB, shape[2:], 999, 1000, device)
              for _ in range(TP_STEPS)]
-    out = {"norms": [], "seconds": []}
+    iw_keys = ("importance_weight_x/min", "importance_weight_x/max", "importance_weight_a/min",
+               "importance_weight_a/max")
+    out = {"norms": [], "seconds": [], "weights": [],
+           "sets": [["keep" if u > 0.5 else "forget" for u in d["u"].reshape(-1).tolist()]
+                    for d in draws]}
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     for d in draws:
@@ -2184,25 +2214,27 @@ def sd_steps(torch, dtype, device, mesh=None):
         torch.cuda.synchronize()
         out["seconds"].append(time.perf_counter() - t0)
         out["norms"].append({k: float(m[k]) for k in DP_NORMS})
+        out["weights"].append({k: float(m[k]) for k in iw_keys})
     out["launches"] = dict(launch_counts)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["held"] = state.held_bytes()
     out["whole"] = whole_digest(torch, sharding)
-    whole = sharding.gather_along(list(sharding.params), sharding.dims, sharding.axes,
-                                  sharding.chunks)
+    whole = sharding.gather_along(list(sharding.params), sharding.layouts)
     out["theta"] = [torch.cat([t.detach().reshape(-1).float().cpu() for t in whole])]
     return out
 
 
-def dp_rank(rank, port, queue, fsdp, steps, tensor=1, kind="celeb"):
-    """One of phase 9(c)'s (``fsdp`` 1), 9(e)'s (``fsdp`` 2), 9(g)'s
-    (``tensor`` 2) or, with ``kind`` "sd", 9(h)'s ranks: gloo on cuda:0;
-    under (c) and (e) its 8 rows of each microbatch, under (g) and (h) the
-    whole cut batch. Rank 0 writes θ after each celeb step under DP_WORK.
-    Puts its norms, seconds, collective seconds ((c): the all-reduces; (e):
-    the gather and the reduce-scatters; (g), (h): the tensor axis's
-    all-reduces), launches, peak memory, held bytes and whether its θ and
-    EMA (celeb) and its whole parameters' digest equal rank 0's."""
+def dp_rank(rank, port, queue, fp32_path, fsdp, steps, tensor=1, kind="celeb", ranks=DP_RANKS):
+    """One of the ``ranks`` ranks of phase 9(c) (``fsdp`` 1), 9(e) (``fsdp``
+    2), 9(g) (``tensor`` 2) or 9(i) (both 2, four ranks), or with ``kind``
+    "sd" of 9(h) or 9(j): gloo on cuda:0; under (c) and (e) its 8 rows of
+    each microbatch, under (g) and (h) the whole cut batch, under (i) and
+    (j) its batch rank's half of it. Puts its norms, seconds, collective seconds ((c): the
+    all-reduces; (e), (i), (j): the gather and the reduce-scatters; (g)–(j):
+    the tensor axis's all-reduces), launches, peak memory, held bytes and
+    whether its θ and EMA (celeb) and its whole parameters' digest equal
+    rank 0's; rank 0 also its errors against one process's fp32 run
+    (``save_fp32_ref``'s file at ``fp32_path``)."""
     import traceback
 
     try:
@@ -2219,9 +2251,9 @@ def dp_rank(rank, port, queue, fsdp, steps, tensor=1, kind="celeb"):
         from siss_tpu_torch.parallel import tensor as tensor_module
         from siss_tpu_torch.train import step as step_module
 
-        dev = initialize_distributed("cuda:0", "gloo", rank=rank, world_size=DP_RANKS,
+        dev = initialize_distributed("cuda:0", "gloo", rank=rank, world_size=ranks,
                                      init_method=f"tcp://localhost:{port}", timeout_s=600)
-        mesh = make_rank_mesh(MeshConfig(data=DP_RANKS // (fsdp * tensor), fsdp=fsdp,
+        mesh = make_rank_mesh(MeshConfig(data=ranks // (fsdp * tensor), fsdp=fsdp,
                                          tensor=tensor))
         seconds = {"all_reduce": [], "gather": [], "scatter": [], "tensor": []}
 
@@ -2250,23 +2282,19 @@ def dp_rank(rank, port, queue, fsdp, steps, tensor=1, kind="celeb"):
             ref = mine.clone()
             dist.broadcast(ref, 0)
             equal.append(torch.equal(ref, mine))
-        if rank == 0:
-            torch.save(out["theta"], DP_WORK / f"{dp_tag(fsdp, tensor, kind)}_rank0_theta.pt")
         destroy_distributed()
+        errors = (step_errors(out, torch.load(fp32_path, mmap=True, weights_only=True))
+                  if rank == 0 else None)
         queue.put({"rank": rank, "equal": equal, "norms": out["norms"], "seconds": out["seconds"],
                    "collectives": {k: v for k, v in seconds.items() if v},
                    "launches": out["launches"], "peak_gib": out["peak_gib"],
-                   "held": out["held"]})
+                   "held": out["held"], "errors": errors})
     except Exception:
         queue.put({"rank": rank, "error": traceback.format_exc()})
 
 
-def dp_tag(fsdp, tensor, kind="celeb"):
-    return f"{kind}_" + (f"tensor{tensor}" if tensor > 1 else f"fsdp{fsdp}")
-
-
-def spawn_ranks(fsdp, steps, tensor=1, kind="celeb"):
-    """Run ``dp_rank`` for ``steps`` steps on DP_RANKS processes sharing the
+def spawn_ranks(fp32_path, fsdp, steps, tensor=1, kind="celeb", ranks=DP_RANKS):
+    """Run ``dp_rank`` for ``steps`` steps on ``ranks`` processes sharing the
     card; their reports, rank 0's first. Every process is joined or killed."""
     import multiprocessing as mp
     import socket
@@ -2276,31 +2304,53 @@ def spawn_ranks(fsdp, steps, tensor=1, kind="celeb"):
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=dp_rank, args=(r, port, queue, fsdp, steps, tensor, kind))
-             for r in range(DP_RANKS)]
+    procs = [ctx.Process(target=dp_rank,
+                         args=(r, port, queue, fp32_path, fsdp, steps, tensor, kind, ranks))
+             for r in range(ranks)]
     for proc in procs:
         proc.start()
     try:
-        ranks = sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
+        reports = sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
     finally:
         for proc in procs:
             proc.join(timeout=60)
             if proc.is_alive():
                 proc.kill()
-    for r in ranks:
+    for r in reports:
         if "error" in r:
             raise AssertionError(f"{kind} ranks (fsdp {fsdp}, tensor {tensor}) rank {r['rank']} "
                                  f"failed:\n{r['error']}")
-    return ranks
+    return reports
 
 
-def check_ranks(torch, label, ranks, ref, fsdp, steps, tensor=1, per_step=None, kind="celeb"):
-    """The two ranks' checks of 9(c), 9(e), 9(g) and 9(h): θ (and EMA)
+def step_errors(run, fp32):
+    """Δθ's largest and RMS error and the norms' largest and RMS relative
+    error of ``run`` (θ after each step kept, the norms of each step)
+    against the fp32 run ``fp32``."""
+    dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
+    n = sum(d.numel() for d in dtheta)
+    rel = [relative(a[k], b[k]) for a, b in zip(run["norms"], fp32["norms"]) for k in DP_NORMS]
+    return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
+            "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
+            "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
+
+
+def save_fp32_ref(torch, ref, name):
+    """Write one process's fp32 θ and norms where the ranks' rank 0 reads
+    them (``dp_rank``): each family's once, which keeps the script's disk
+    writes small (sd_v1's θ is 3.4 GB). Returns the path."""
+    path = DP_WORK / f"{name}_fp32.pt"
+    torch.save({"theta": ref["fp32"]["theta"], "norms": ref["fp32"]["norms"]}, path)
+    return path
+
+
+def check_ranks(torch, label, ranks, ref, steps, per_step=None):
+    """The ranks' checks of 9(c), 9(e) and 9(g)–(j): θ (and EMA)
     equal across the ranks after each step it was kept and their whole
     parameters' digests equal, exact launches (``per_step``: the celeb
-    step's 4 reduce and 8 backward unless given), equal norms, and the
-    errors against one process's fp32 steps at most twice one process's
-    bf16 errors. Returns the errors' ratios."""
+    step's 4 reduce and 8 backward unless given), equal norms, and rank
+    0's errors against one process's fp32 steps at most twice one
+    process's bf16 errors. Returns the errors' ratios."""
     per_step = per_step or {"siss_reduce": 4, "siss_bwd": 8}
     for r in ranks:
         if not all(r["equal"]):
@@ -2312,25 +2362,13 @@ def check_ranks(torch, label, ranks, ref, fsdp, steps, tensor=1, per_step=None, 
                                  f"{r['launches']}, expected {want}")
         if r["norms"] != ranks[0]["norms"]:
             raise AssertionError(f"data parallel ({label}): the ranks' norms differ")
-    two = {"theta": torch.load(DP_WORK / f"{dp_tag(fsdp, tensor, kind)}_rank0_theta.pt"),
-           "norms": ranks[0]["norms"]}
-    fp32 = ref["fp32"]
-
-    def errors(run):
-        dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
-        n = sum(d.numel() for d in dtheta)
-        rel = [relative(a[k], b[k]) for a, b in zip(run["norms"], fp32["norms"]) for k in DP_NORMS]
-        return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
-                "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
-                "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
-
-    e_one, e_two = errors(ref["bf16"]), errors(two)
+    e_one, e_two = step_errors(ref["bf16"], ref["fp32"]), ranks[0]["errors"]
     ratios = {k: relative(e_two[k], 0.0) if e_one[k] == 0 else e_two[k] / e_one[k] for k in e_one}
     print(f"data parallel ({label}): errors against one process's fp32 step, one process bf16 "
-          f"{json.dumps(e_one)}, two ranks {json.dumps(e_two)}, ratio {json.dumps(ratios)}")
+          f"{json.dumps(e_one)}, the ranks {json.dumps(e_two)}, ratio {json.dumps(ratios)}")
     bad = {k: v for k, v in ratios.items() if not v <= 2.0}
     if bad:
-        raise AssertionError(f"data parallel ({label}): two ranks' errors above twice one "
+        raise AssertionError(f"data parallel ({label}): the ranks' errors above twice one "
                              f"process's bf16 errors: {bad}")
     return ratios
 
@@ -2344,18 +2382,20 @@ def relative(a, b):
     return abs(a - b) / abs(b)
 
 
-def split_elements(torch, axis="fsdp"):
-    """Elements of the celeb UNet's parameters that an fsdp (or tensor) axis
-    of 2 splits (``fsdp_dim``, ``tp_dim``), and of all of them."""
+def rank_elements(torch, fsdp=1, tensor=1):
+    """Elements of the celeb UNet's parameters that a rank holds on an
+    ``fsdp`` × ``tensor`` mesh (``param_dims``, JAX's placement), and of
+    all of them."""
     from siss_tpu_torch.models import UNet2D, UNet2DConfig
-    from siss_tpu_torch.parallel import fsdp_dim, tp_dim
+    from siss_tpu_torch.parallel import param_dims
 
     with torch.device("meta"):
         params = list(UNet2D(UNet2DConfig.celebahq_256()).named_parameters())
-    split = [(fsdp_dim(p.shape, 2) if axis == "fsdp" else tp_dim(k.split("."), p.shape, 2))
-             is not None for k, p in params]
-    return (sum(p.numel() for (_, p), s in zip(params, split) if s),
-            sum(p.numel() for _, p in params))
+    held = 0
+    for k, p in params:
+        t, f = param_dims(k.split("."), p.shape, fsdp, tensor)
+        held += p.numel() // ((tensor if t is not None else 1) * (fsdp if f is not None else 1))
+    return held, sum(p.numel() for _, p in params)
 
 
 def cli_two_ranks(base, out_dir, *extra):
@@ -2485,8 +2525,9 @@ def phase_data_parallel(torch, card, base):
     if "exclusive" in mode.lower():
         raise AssertionError(f"compute mode {mode}: two processes cannot share the card, so "
                              "phase 9(c) cannot run")
-    data_ranks = spawn_ranks(1, DP_DATA_STEPS)
-    check_ranks(torch, "c", data_ranks, ref, 1, DP_DATA_STEPS)
+    fp32_path = save_fp32_ref(torch, ref, "celeb")
+    data_ranks = spawn_ranks(fp32_path, 1, DP_DATA_STEPS)
+    check_ranks(torch, "c", data_ranks, ref, DP_DATA_STEPS)
     for r in data_ranks:
         print(f"data parallel (c) ({card}) rank {r['rank']}: step s "
               f"{[round(t, 4) for t in r['seconds']]} (one process bf16 "
@@ -2496,9 +2537,10 @@ def phase_data_parallel(torch, card, base):
               f"launches {r['launches']}")
 
     # (e) data=1 x fsdp=2 on two ranks sharing the card over gloo.
-    fsdp_ranks = spawn_ranks(2, DP_STEPS)
-    check_ranks(torch, "e", fsdp_ranks, ref, 2, DP_STEPS)
-    split, total = split_elements(torch)
+    fsdp_ranks = spawn_ranks(fp32_path, 2, DP_STEPS)
+    check_ranks(torch, "e", fsdp_ranks, ref, DP_STEPS)
+    held, total = rank_elements(torch, fsdp=2)
+    split = 2 * (total - held)
     whole = data_ranks[0]["held"]
     # each category holds fp32 tensors of the parameters' shapes: 1 (params,
     # EMA) or 2 (AdamW's moments, the two accumulators) of them
@@ -2553,40 +2595,67 @@ def phase_data_parallel(torch, card, base):
     torch.backends.cudnn.deterministic = False
 
 
+def check_held(torch, card, label, ranks, whole, fsdp, tensor, param_bytes):
+    """Each rank holds exactly the placement's share of one process's
+    parameters, EMA, AdamW moments and accumulators (``whole``: one
+    process's held bytes), and ``param_bytes`` of parameters."""
+    held, total = rank_elements(torch, fsdp, tensor)
+    # each category holds fp32 tensors of the parameters' shapes: 1 (params,
+    # EMA) or 2 (AdamW's moments, the two accumulators) of them
+    copies = {"params": 1, "ema": 1, "optimizer": 2, "accumulators": 2}
+    want = {k: whole[k] - 4 * copies[k] * (total - held) for k in HELD}
+    for r in ranks:
+        if {k: r["held"][k] for k in HELD} != want or r["held"]["params"] != param_bytes:
+            raise AssertionError(f"tensor ({label}) rank {r['rank']}: held bytes {r['held']}, "
+                                 f"expected {want} (parameters {param_bytes})")
+    print(f"tensor ({label}) ({card}): {held} of {total} parameter elements held a rank at "
+          f"fsdp {fsdp} x tensor {tensor}; held bytes a rank "
+          f"{json.dumps({k: ranks[0]['held'][k] for k in HELD})} against one process's "
+          f"{json.dumps({k: whole[k] for k in HELD})}")
+
+
+def print_ranks(card, label, ranks, one, extra=""):
+    """Each rank's step seconds, its fsdp gather and reduce-scatter seconds
+    (when it has them), its activation all-reduces a step, peak memory and
+    launches."""
+    for r in ranks:
+        c, ar = r["collectives"], r["collectives"]["tensor"]
+        fsdp = (f"gather s {[round(t, 4) for t in c['gather']]}, reduce-scatter s "
+                f"{round(sum(c['scatter']), 4)} in {len(c['scatter'])}, " if "gather" in c else "")
+        print(f"tensor ({label}) ({card}) rank {r['rank']}: step s "
+              f"{[round(t, 4) for t in r['seconds']]} (one process bf16 "
+              f"{[round(t, 4) for t in one['seconds']]}), {fsdp}{len(ar) // TP_STEPS} "
+              f"activation all-reduces {round(sum(ar) / TP_STEPS, 4)} s a step, peak memory "
+              f"{r['peak_gib']:.2f} GiB (one process {one['peak_gib']:.2f}{extra}), launches "
+              f"{r['launches']}")
+
+
 def tensor_parallel(torch, card):
     """9(g): the celeb step at full width on ``data=1 × tensor=2``, cut to
     TP_MB × TP_ACCUM, against one process's bf16 and fp32 steps on the same
-    cut; 9(h): the sd_v1 step with flash at microbatch 1 × TP_ACCUM on
-    ``data=1 × tensor=2``, likewise against one process's, and the bf16
-    flash kernels at its local heads' shapes against their plain
-    versions."""
+    cut; 9(i): the same on ``data=1 × fsdp=2 × tensor=2`` against the same
+    steps; 9(h): the sd_v1 step with flash and Adafactor at microbatch
+    TP_SD_MB × TP_SD_ACCUM on ``data=1 × tensor=2``, likewise against one
+    process's (whose norms that are exactly 0 are printed with the sets of
+    the step's samples), 9(j) the same on ``data=1 × fsdp=2 × tensor=2``,
+    and the bf16 flash kernels at the local heads' shapes against their
+    plain versions."""
     import gc
 
     ref = {name: dp_steps(torch, dtype, "cuda", steps=TP_STEPS, accum=TP_ACCUM, mb=TP_MB)
            for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
-    ranks = spawn_ranks(1, TP_STEPS, tensor=2)
-    check_ranks(torch, "g", ranks, ref, 1, TP_STEPS, tensor=2,
-                per_step={"siss_reduce": TP_ACCUM, "siss_bwd": 2 * TP_ACCUM})
-    split, total = split_elements(torch, "tensor")
-    whole = ref["bf16"]["held"]
-    copies = {"params": 1, "ema": 1, "optimizer": 2, "accumulators": 2}
-    for r in ranks:
-        want = {k: whole[k] - 4 * copies[k] * split // 2 for k in HELD}
-        if ({k: r["held"][k] for k in HELD} != want
-                or r["held"]["params"] != TP_PARAM_BYTES["celeb"]):
-            raise AssertionError(f"tensor (g) rank {r['rank']}: held bytes {r['held']}, expected "
-                                 f"{want} (parameters {TP_PARAM_BYTES['celeb']})")
-    print(f"tensor (g) ({card}): {split} of {total} parameters split over tensor 2; held bytes a "
-          f"rank {json.dumps({k: ranks[0]['held'][k] for k in HELD})} against one process's "
-          f"{json.dumps({k: whole[k] for k in HELD})}")
-    for r in ranks:
-        ar = r["collectives"]["tensor"]
-        print(f"tensor (g) ({card}) rank {r['rank']}: step s {[round(t, 4) for t in r['seconds']]} "
-              f"(one process bf16 {[round(t, 4) for t in ref['bf16']['seconds']]}), "
-              f"{len(ar) // TP_STEPS} activation all-reduces {round(sum(ar) / TP_STEPS, 4)} s a "
-              f"step, peak "
-              f"memory {r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}), "
-              f"launches {r['launches']}")
+    per_step = {"siss_reduce": TP_ACCUM, "siss_bwd": 2 * TP_ACCUM}
+    fp32_path = save_fp32_ref(torch, ref, "celeb_tp")
+    ranks = spawn_ranks(fp32_path, 1, TP_STEPS, tensor=2)
+    check_ranks(torch, "g", ranks, ref, TP_STEPS, per_step)
+    check_held(torch, card, "g", ranks, ref["bf16"]["held"], 1, 2, TP_PARAM_BYTES["celeb"])
+    print_ranks(card, "g", ranks, ref["bf16"])
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(fp32_path, 2, TP_STEPS, tensor=2, ranks=4)
+    check_ranks(torch, "i", ranks, ref, TP_STEPS, per_step)
+    check_held(torch, card, "i", ranks, ref["bf16"]["held"], 2, 2, TP_FSDP_PARAM_BYTES["celeb"])
+    print_ranks(card, "i", ranks, ref["bf16"])
+    print(f"phase 9(i): {time.perf_counter() - t0:.1f} s")
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -2596,29 +2665,36 @@ def tensor_parallel(torch, card):
         ref[name] = sd_steps(torch, dtype, "cuda")
         gc.collect()
         torch.cuda.empty_cache()
-    ranks = spawn_ranks(1, TP_STEPS, tensor=2, kind="sd")
-    check_ranks(torch, "h", ranks, ref, 1, TP_STEPS, tensor=2, per_step=TP_SD_PER_STEP,
-                kind="sd")
+        for k, (norms, sets, weights) in enumerate(zip(*(ref[name][key] for key in
+                                                         ("norms", "sets", "weights")))):
+            zero = [n for n, v in norms.items() if v == 0.0]
+            print(f"tensor (h) one process {name} step {k + 1}: samples from {sets}, importance "
+                  f"weights {json.dumps(weights)}, norms exactly 0: {zero or 'none'}")
+    print("tensor (h): a set with no sample in a step has importance weights of ~e^-|d| "
+          "(|d| ~ 60-95 at t = 999 over 16,384 dimensions), so its gradient's squared norm "
+          "underflows fp32 to exactly 0, in JAX's step too (tests/test_torch_sd_zero_norm.py)")
+    fp32_path = save_fp32_ref(torch, ref, "sd")
     want = {k: TP_STEPS * n for k, n in TP_SD_PER_STEP.items()}
-    for r in ranks:
-        if r["launches"] != want:
-            raise AssertionError(f"tensor (h) rank {r['rank']}: launches {r['launches']}, "
-                                 f"expected {want}")
-        if r["held"]["params"] != TP_PARAM_BYTES["sd"]:
-            raise AssertionError(f"tensor (h) rank {r['rank']}: {r['held']['params']} parameter "
-                                 f"bytes, expected {TP_PARAM_BYTES['sd']}")
-    for r in ranks:
-        ar = r["collectives"]["tensor"]
-        print(f"tensor (h) ({card}) rank {r['rank']}: sd_v1 flash step s "
-              f"{[round(t, 4) for t in r['seconds']]} (one process bf16 "
-              f"{[round(t, 4) for t in ref['bf16']['seconds']]}), {len(ar) // TP_STEPS} "
-              f"activation all-reduces {round(sum(ar) / TP_STEPS, 4)} s a step, peak memory "
-              f"{r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}; "
-              f"scripts/fsdp_memory.py's readings: {FSDP_MEMORY_GIB}), held bytes "
-              f"{json.dumps(r['held'])} (parameters whole {SD_PARAM_BYTES}), launches "
-              f"{r['launches']}, norms {r['norms'][-1]}")
-    for i, shape in enumerate(TP_FLASH_SHAPES):
-        check_flash_case(torch, shape, torch.bfloat16, seed=100 + i)
+    for label, fsdp, n_ranks, param_bytes in (("h", 1, 2, TP_PARAM_BYTES["sd"]),
+                                              ("j", 2, 4, TP_FSDP_PARAM_BYTES["sd"])):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(fp32_path, fsdp, TP_STEPS, tensor=2, kind="sd", ranks=n_ranks)
+        check_ranks(torch, label, ranks, ref, TP_STEPS, TP_SD_PER_STEP)
+        for r in ranks:
+            if r["launches"] != want:
+                raise AssertionError(f"tensor ({label}) rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {want}")
+            if r["held"]["params"] != param_bytes:
+                raise AssertionError(f"tensor ({label}) rank {r['rank']}: {r['held']['params']} "
+                                     f"parameter bytes, expected {param_bytes}")
+        print_ranks(card, label, ranks, ref["bf16"],
+                    f"; scripts/fsdp_memory.py's readings at 1 x 2 with AdamW: {FSDP_MEMORY_GIB}")
+        for r in ranks:
+            print(f"tensor ({label}) ({card}) rank {r['rank']}: held bytes {json.dumps(r['held'])} "
+                  f"(parameters whole {SD_PARAM_BYTES}), norms {r['norms'][-1]}")
+        for i, shape in enumerate(TP_FLASH_SHAPES[label]):
+            check_flash_case(torch, shape, torch.bfloat16, seed=100 + i)
+        print(f"phase 9({label}): {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:

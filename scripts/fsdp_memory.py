@@ -85,7 +85,7 @@ def rank_main(rank: int, port: int, data: int, fsdp: int, steps: int, queue) -> 
         del held["ema"]   # the SD step keeps no EMA
         queue.put({"rank": rank, "peak_bytes": torch.cuda.max_memory_allocated(),
                    "held_bytes": held, "step_seconds": seconds,
-                   "split_params": sum(d is not None for d in state.sharding.dims)})
+                   "split_params": sum(bool(lay.axes) for lay in state.sharding.layouts)})
         destroy_distributed()
     except Exception:
         queue.put({"rank": rank, "error": traceback.format_exc()})

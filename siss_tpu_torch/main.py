@@ -20,10 +20,11 @@ each rank joins one process group (``--dist-backend``: ``nccl`` on CUDA
 and ``gloo`` on the CPU by default; ranks that share one card need
 ``gloo``), runs on ``cuda:LOCAL_RANK`` (or the ``--device cuda:N`` named)
 and takes its share of every batch. Every rank uses rank 0's
-``output_dir``. The config's ``mesh`` lays the ranks out as ``data × fsdp``
-(``mesh.fsdp=2`` splits the UNet's parameters, optimizer state and EMA over
-pairs of ranks); each rank prints the resolved mesh. ``mesh.tensor`` above 1
-raises.
+``output_dir``. The config's ``mesh`` lays the ranks out as ``data × fsdp
+× tensor`` (``mesh.fsdp=2`` splits the UNet's parameters, optimizer state
+and EMA over pairs of ranks, ``mesh.tensor=2`` its attention, GEGLU and
+resnet layers Megatron-style, and both together split a layer's blocks
+once more over ``fsdp``); each rank prints the resolved mesh.
 """
 
 from __future__ import annotations

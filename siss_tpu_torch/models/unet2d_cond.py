@@ -43,7 +43,6 @@ from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
-from siss_tpu_torch.device import resolve_device
 from siss_tpu_torch.models.layers import (
     Downsample2D,
     ResnetBlock2D,
@@ -52,7 +51,7 @@ from siss_tpu_torch.models.layers import (
     attention_core,
     get_timestep_embedding,
 )
-from siss_tpu_torch.models.unet2d import _Block, init_weights
+from siss_tpu_torch.models.unet2d import _Block, initialised
 from siss_tpu_torch.ops.flash_attention import flash_attention
 from siss_tpu_torch.parallel.tensor import TensorSplit, copy, local_size, row_linear
 
@@ -438,9 +437,4 @@ def build_unet_cond(config: UNet2DConditionConfig, seed: int = 0,
     compute in ``dtype``; channels_last memory format on the card. The
     weights are drawn on the host from ``seed``, so they do not depend on
     the device."""
-    dev = resolve_device(device)
-    model = init_weights(UNet2DCondition(config, dtype=dtype), torch.Generator().manual_seed(seed))
-    model = model.to(dev)
-    if dev.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
-    return model
+    return initialised(lambda: UNet2DCondition(config, dtype=dtype), seed, device)

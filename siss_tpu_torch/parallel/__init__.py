@@ -1,7 +1,6 @@
 """Data, fully sharded data and tensor parallelism over
 ``torch.distributed``: port of the ``data``, ``fsdp`` and ``tensor`` axes of
-``siss_tpu/parallel/``. ``tensor`` and ``fsdp`` both above 1 are not ported
-(``mesh.resolve_mesh`` raises for them)."""
+``siss_tpu/parallel/``, alone or together (``data × fsdp × tensor``)."""
 
 from siss_tpu_torch.parallel.distributed import (
     RankMesh,
@@ -16,8 +15,8 @@ from siss_tpu_torch.parallel.distributed import (
     rank,
     world_size,
 )
-from siss_tpu_torch.parallel.fsdp import Sharding, shard_module, world_mesh
-from siss_tpu_torch.parallel.mesh import MeshConfig, fsdp_dim, resolve_mesh, tp_dim
+from siss_tpu_torch.parallel.fsdp import Layout, Sharding, shard_module, world_mesh
+from siss_tpu_torch.parallel.mesh import MeshConfig, fsdp_dim, param_dims, resolve_mesh, tp_dim
 from siss_tpu_torch.parallel.multihost import (
     all_gather_along,
     all_reduce_,
@@ -32,6 +31,7 @@ from siss_tpu_torch.parallel.multihost import (
 )
 
 __all__ = [
+    "Layout",
     "MeshConfig",
     "RankMesh",
     "Sharding",
@@ -51,6 +51,7 @@ __all__ = [
     "make_rank_mesh",
     "make_rank_sampler",
     "maybe_initialize_distributed",
+    "param_dims",
     "process_batch_slice",
     "rank",
     "rank_rows",

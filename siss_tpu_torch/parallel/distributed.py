@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -123,7 +124,8 @@ def broadcast_object(obj: Any) -> Any:
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
     """This rank's place in the ``data × fsdp × tensor`` mesh. Each axis's
-    group holds the ranks that differ from this one only along that axis;
+    group holds the ranks that differ from this one only along that axis,
+    ``plane_group`` those that differ only along ``fsdp`` and ``tensor``;
     None is the whole world. An axis of size 1 has no collective."""
 
     data: int = 1
@@ -132,6 +134,7 @@ class RankMesh:
     fsdp_group: Any = None
     tensor: int = 1
     tensor_group: Any = None
+    plane_group: Any = None
 
     @property
     def tensor_rank(self) -> int:
@@ -162,41 +165,51 @@ class RankMesh:
 
 #: The subgroups of each mesh built in this world: ``new_group`` is
 #: collective, so a world builds each once, every rank in the same order.
-_GROUPS: Dict[Tuple[int, int, int], Tuple[Any, Any, Any]] = {}
+_GROUPS: Dict[Tuple[int, int, int], Tuple[Any, Any, Any, Any]] = {}
 
 
-def _axis_groups(sizes: Tuple[int, int, int]) -> Tuple[Any, Any, Any]:
+def _group_along(sizes: Tuple[int, ...], strides: Tuple[int, ...]) -> Any:
+    """This rank's group of the ranks that differ from it only along the
+    axes of ``sizes`` (of ``strides`` in the rank): None where they span the
+    world or are this rank alone, else a new group. Every rank creates every
+    such group, in the same order."""
+    world, me = world_size(), rank()
+    if math.prod(sizes) in (1, world):
+        return None
+    offsets = sorted(sum(c * st for c, st in zip(coords, strides))
+                     for coords in itertools.product(*map(range, sizes)))
+
+    def start(r):
+        return r - sum(r // st % n * st for n, st in zip(sizes, strides))
+
+    mine = None
+    for first in sorted({start(r) for r in range(world)}):
+        members = [first + o for o in offsets]
+        group = dist.new_group(members)
+        if me in members:
+            mine = group
+    return mine
+
+
+def _axis_groups(sizes: Tuple[int, int, int]) -> Tuple[Any, Any, Any, Any]:
     """This rank's group along each axis of a (data, fsdp, tensor) mesh of
-    ``sizes``: None where the axis spans the world or has size 1 (no
-    collective runs over it), else the group of the ranks that differ from
-    this one only along it. Every rank creates every group, axis by axis,
-    in the same order."""
-    world, me = math.prod(sizes), rank()
-    strides = (sizes[1] * sizes[2], sizes[2], 1)
-    mine: list = [None, None, None]
-    for axis, (size, stride) in enumerate(zip(sizes, strides)):
-        if size in (1, world):
-            continue
-        starts = sorted({r - (r // stride % size) * stride for r in range(world)})
-        for start in starts:
-            members = [start + i * stride for i in range(size)]
-            group = dist.new_group(members)
-            if me in members:
-                mine[axis] = group
-    return tuple(mine)
+    ``sizes``, then of the fsdp × tensor plane (``RankMesh``)."""
+    _, fsdp, tensor = sizes
+    axes = [_group_along((n,), (stride,)) for n, stride in zip(sizes, (fsdp * tensor, tensor, 1))]
+    return (*axes, _group_along((fsdp, tensor), (tensor, 1)))
 
 
 def make_rank_mesh(cfg: MeshConfig = MeshConfig()) -> RankMesh:
-    """``cfg`` resolved over the ranks (``resolve_mesh``: ``tensor`` > 1
-    with ``fsdp`` > 1 raises), with this rank's groups. Collective on every
-    rank when two axes are above 1 and the world has not built that mesh's
-    groups yet."""
+    """``cfg`` resolved over the ranks (``resolve_mesh``), with this rank's
+    groups. Collective on every rank when two axes are above 1 and the
+    world has not built that mesh's groups yet."""
     mesh = resolve_mesh(cfg, world_size())
     key = (mesh.data, mesh.fsdp, mesh.tensor)
     if key not in _GROUPS:
         _GROUPS[key] = _axis_groups(key)
-    data_group, fsdp_group, tensor_group = _GROUPS[key]
-    return RankMesh(mesh.data, mesh.fsdp, data_group, fsdp_group, mesh.tensor, tensor_group)
+    data_group, fsdp_group, tensor_group, plane_group = _GROUPS[key]
+    return RankMesh(mesh.data, mesh.fsdp, data_group, fsdp_group, mesh.tensor, tensor_group,
+                    plane_group)
 
 
 def destroy_distributed() -> None:

@@ -9,14 +9,15 @@ split over the ``data × fsdp`` ranks (as ``batch_sharding`` splits it over
 is split over the ``fsdp`` ranks along the dimension that ``fsdp_dim``
 picks (``parallel.fsdp``); with a ``tensor`` axis, each parameter with a
 Megatron role is split over the ``tensor`` ranks along the dimension that
-``tp_dim`` picks (``parallel.tensor``). The two axes together (``fsdp`` and
-``tensor`` both above 1) are not ported yet.
+``tp_dim`` picks (``parallel.tensor``). With both axes, a parameter with a
+Megatron role is split over ``tensor`` first and then over ``fsdp`` along
+another dimension (``param_dims``: JAX's ``_param_spec``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 #: Tensors with fewer elements stay whole on every rank (JAX's ``min_size``).
 FSDP_MIN_SIZE = 2 ** 16
@@ -47,15 +48,9 @@ class MeshConfig:
 
 
 def resolve_mesh(cfg: MeshConfig, world_size: int) -> MeshConfig:
-    """``cfg`` resolved over ``world_size`` ranks, one device each. A
-    ``tensor`` axis above 1 together with an ``fsdp`` axis above 1 raises
-    ``NotImplementedError`` first. Unlike the JAX ``make_mesh``, an explicit
-    ``data`` that leaves ranks over raises (``resolve``) instead of leaving
-    them idle."""
-    if cfg.tensor > 1 and cfg.fsdp > 1:
-        raise NotImplementedError(
-            f"mesh {cfg}: the tensor axis together with the fsdp axis is not ported yet "
-            "(ROADMAP Queue 1 item 12c(ii)); use fsdp: 1 with tensor > 1")
+    """``cfg`` resolved over ``world_size`` ranks, one device each. Unlike
+    the JAX ``make_mesh``, an explicit ``data`` that leaves ranks over raises
+    (``resolve``) instead of leaving them idle."""
     return cfg.resolve(world_size)
 
 
@@ -66,12 +61,14 @@ def _flax_axes(ndim: int) -> Sequence[int]:
     return {4: (2, 3, 1, 0), 2: (1, 0)}.get(ndim, tuple(range(ndim)))
 
 
-def fsdp_dim(shape: Sequence[int], n: int, min_size: int = FSDP_MIN_SIZE) -> Optional[int]:
+def fsdp_dim(shape: Sequence[int], n: int, min_size: int = FSDP_MIN_SIZE,
+             taken: Optional[int] = None) -> Optional[int]:
     """The torch dimension of a parameter of ``shape`` that an ``fsdp`` axis
     of ``n`` ranks splits, or None (replicated): JAX's ``_fsdp_spec``, read
     in the flax layout. A tensor under ``min_size`` elements stays whole;
     otherwise the last flax axis that ``n`` divides is split, so no shard
-    is ever padded."""
+    is ever padded. ``taken``: a torch dimension the tensor axis splits,
+    which fsdp leaves alone."""
     shape = tuple(int(s) for s in shape)
     numel = 1
     for s in shape:
@@ -81,7 +78,7 @@ def fsdp_dim(shape: Sequence[int], n: int, min_size: int = FSDP_MIN_SIZE) -> Opt
     axes = _flax_axes(len(shape))
     for axis in reversed(range(len(shape))):
         dim = axes[axis]
-        if shape[dim] % n == 0 and shape[dim] >= n:
+        if dim != taken and shape[dim] % n == 0 and shape[dim] >= n:
             return dim
     return None
 
@@ -129,3 +126,16 @@ def tp_dim(names: Sequence[str], shape: Sequence[int], n: int) -> Optional[int]:
     if dim is None or dim >= len(shape) or int(shape[dim]) % n:
         return None
     return dim
+
+
+def param_dims(names: Sequence[str], shape: Sequence[int], fsdp: int, tensor: int,
+               min_size: int = FSDP_MIN_SIZE) -> Tuple[Optional[int], Optional[int]]:
+    """(tensor dimension, fsdp dimension) of the parameter at the state-dict
+    path ``names`` of whole ``shape`` on a mesh of ``fsdp`` × ``tensor``
+    ranks, either None: JAX's ``_param_spec`` read in the torch layout. The
+    Megatron role comes first (``tp_dim``); ``fsdp_dim`` then runs on the
+    whole shape (``min_size`` on its whole element count, divisibility on
+    its whole dimensions) with the role's dimension taken. A role that the
+    tensor axis does not divide leaves plain ``fsdp_dim``."""
+    tdim = tp_dim(names, shape, tensor)
+    return tdim, fsdp_dim(shape, fsdp, min_size, taken=tdim)

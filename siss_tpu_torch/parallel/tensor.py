@@ -26,12 +26,12 @@ Each helper takes ``split`` None (no ``tensor`` axis) and then does what
 the whole layer does, with no collective: a module has one forward.
 
 ``split_modules`` turns a whole model into this rank's local model. The
-roles are ``tp_dim``'s alone: each module that can run split
-(``set_tensor_split``) and of whose parameters ``tp_dim`` splits any is
-told its ``TensorSplit``; placement then keeps this rank's block of each
-parameter that ``tp_dim`` splits (``parallel.fsdp.shard_module``). A
-module whose roles the axis does not divide stays whole, as JAX replicates
-it.
+roles are ``tp_dim``'s alone (through ``param_dims``): each module that can
+run split (``set_tensor_split``) and of whose parameters ``tp_dim`` splits
+any is told its ``TensorSplit``; placement then keeps this rank's block of
+each parameter that ``tp_dim`` splits (``parallel.fsdp.shard_module``), and
+of that block its fsdp block where an ``fsdp`` axis splits it too. A module
+whose roles the axis does not divide stays whole, as JAX replicates it.
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from siss_tpu_torch.ops.batched import rebatch, unbatch
-from siss_tpu_torch.parallel.mesh import tp_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,27 +114,25 @@ def block(t: torch.Tensor, split: Optional[TensorSplit], dim: int = 0) -> torch.
 
 @dataclasses.dataclass
 class TensorPlacement:
-    """Per parameter of a model (``named_parameters`` order): the dimension
-    the ``tensor`` axis splits (None: whole), the chunks that dimension is
-    cut into before each is split (2 for GEGLU's [h | gate]), and whether a
-    whole parameter is used only in this rank's slice (its gradient is then
-    summed over the tensor ranks)."""
+    """Per parameter of a model (``named_parameters`` order): the chunks its
+    tensor-split dimension is cut into before each is split (2 for GEGLU's
+    [h | gate]), and whether a whole parameter is used only in this rank's
+    slice (its gradient is then summed over the tensor ranks)."""
 
-    dims: List[Optional[int]]
     chunks: List[int]
     partial: List[bool]
 
 
-def split_modules(model: torch.nn.Module, mesh) -> TensorPlacement:
+def split_modules(model: torch.nn.Module, mesh, dims: List[Optional[int]]) -> TensorPlacement:
     """Tell each module of ``model`` that can run split, and of whose
-    parameters ``tp_dim`` splits any over ``mesh``'s tensor axis, its
+    parameters the tensor dimensions ``dims`` (``named_parameters`` order;
+    ``mesh.param_dims``) split any over ``mesh``'s tensor axis, its
     ``TensorSplit`` (the module's forward then runs locally), and return
-    the placement of every parameter. The parameters themselves are not
-    touched. A module that does not divide over the axis raises in its
+    the rest of every parameter's placement. The parameters themselves are
+    not touched. A module that does not divide over the axis raises in its
     ``set_tensor_split``."""
     split = TensorSplit(mesh.tensor_group, mesh.tensor, mesh.tensor_rank)
-    dims = {name: tp_dim(name.split("."), p.shape, mesh.tensor)
-            for name, p in model.named_parameters()}
+    dims = dict(zip((name for name, _ in model.named_parameters()), dims))
     chunks = dict.fromkeys(dims, 1)
     partial = dict.fromkeys(dims, False)
     for prefix, module in model.named_modules():
@@ -148,7 +145,7 @@ def split_modules(model: torch.nn.Module, mesh) -> TensorPlacement:
             partial[inner(k)] = True
         for k, n in getattr(module, "tensor_chunks", {}).items():
             chunks[inner(k)] = n
-    return TensorPlacement(list(dims.values()), list(chunks.values()), list(partial.values()))
+    return TensorPlacement(list(chunks.values()), list(partial.values()))
 
 
 def unsplit_modules(model: torch.nn.Module) -> None:

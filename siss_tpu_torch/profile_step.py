@@ -75,7 +75,7 @@ def make_main_path(device="cuda", dtype=torch.bfloat16, mesh=None):
     return state, step, batch, gen
 
 
-def make_sd_path(device="cuda", mesh=None, dtype=torch.bfloat16):
+def make_sd_path(device="cuda", mesh=None, dtype=torch.bfloat16, optimizer=None):
     """(state, step, batch, generator) of the SD-1.x latent SISS step on
     ``device``, as ``bench.py --workload sd`` builds it (``build_sd``) with
     ``configs/delete_sd.yaml``'s settings and ``--attention-impl flash``:
@@ -84,7 +84,8 @@ def make_sd_path(device="cuda", mesh=None, dtype=torch.bfloat16):
     eps 1e-8), scaling_norm 750, λ 0.5, t ≡ 999, max_grad_norm 1, no EMA,
     microbatch 1 × 16 accumulation steps of [64, 64, 4] latents, and one
     77×768 prompt embedding shared by every microbatch. ``mesh`` and
-    ``dtype`` as in ``make_main_path``."""
+    ``dtype`` as in ``make_main_path``; ``optimizer``: another optimizer
+    config than the AdamW (``build_optimizer``'s keys)."""
     from siss_tpu_torch.diffusion import sd_noise_schedule
     from siss_tpu_torch.models import UNet2DConditionConfig, build_unet_cond
     from siss_tpu_torch.parallel import shard_module
@@ -95,7 +96,7 @@ def make_sd_path(device="cuda", mesh=None, dtype=torch.bfloat16):
                                       remat_attention=False)
     model = build_unet_cond(cfg, seed=0, dtype=dtype, device=device)
     sharding = shard_module(model, mesh)
-    opt, sched = build_optimizer(SD_ADAMW, model.parameters(), sharding=sharding)
+    opt, sched = build_optimizer(optimizer or SD_ADAMW, model.parameters(), sharding=sharding)
     state = TrainState.create(model, opt, sched, sharding=sharding)
     step = build_deletion_train_step(cond_unet_eps_apply, sd_noise_schedule(device=device),
                                      DeletionStepConfig(**SD_STEP_KW))

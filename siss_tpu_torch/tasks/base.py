@@ -3,9 +3,8 @@
 A task runs on the ``device`` it is given (``"cuda"`` unless the caller asks
 for the CPU): under a process group, its rank's device. The config's
 ``mesh`` resolves over the ranks (``data: -1`` is all of them) into
-``self.mesh`` with its process groups; ``tensor`` and ``fsdp`` both above 1
-raise, as that combination is not ported. The UNet tasks split their UNet
-over the ``fsdp`` or the ``tensor`` axis (``parallel.shard_module``) after
+``self.mesh`` with its process groups. The UNet tasks split their UNet
+over the ``fsdp`` and the ``tensor`` axes (``parallel.shard_module``) after
 loading its weights, as the JAX tasks call ``shard_params_fsdp``. Under
 several ranks the batch is split over the ``data × fsdp`` ranks (the ranks
 of a tensor group hold the same rows), the tracker writes on rank 0 only, every rank
@@ -54,8 +53,7 @@ class Task(abc.ABC):
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        #: This rank's place in the data × fsdp × tensor mesh (fsdp and
-        #: tensor both above 1 raise: item 12c(ii)).
+        #: This rank's place in the data × fsdp × tensor mesh.
         self.mesh = make_rank_mesh(MeshConfig.from_cfg(cfg.get("mesh")))
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -165,9 +163,9 @@ class Task(abc.ABC):
     def eval_model(self, state: TrainState) -> torch.nn.Module:
         """The model to sample from, whole on every rank: the EMA weights
         when the state keeps them, else the model's, in a copy of the model
-        refreshed (gathered, when split over ``fsdp`` or ``tensor``) on each
-        call; the
-        model itself when it is whole and has no EMA. Collective."""
+        refreshed (gathered, when split over ``fsdp`` or ``tensor`` or
+        both) on each call; the model itself when it is whole and has no
+        EMA. Collective."""
         sharding = state.sharding
         if state.ema is None and not sharding.sharded:
             return state.model

@@ -139,12 +139,14 @@ class Adafactor(torch.optim.Optimizer):
     7. p −= the result.
 
     With a ``sharding`` (``parallel.fsdp``), a parameter split over the
-    ``fsdp`` or the ``tensor`` ranks is this rank's block of it:
-    ``factored_dims`` reads its whole shape, and each mean over the split
+    ``fsdp`` or the ``tensor`` ranks, or both, is this rank's block of it:
+    ``factored_dims`` reads its whole shape, and each mean over a split
     dimension, the update's RMS and the parameter's RMS are sums of the
-    ranks' partial sums. Those are all-reduced in two rounds for all the
-    parameters split over one axis at once (the factored means and the
-    parameter's RMS, then the update's RMS).
+    ranks' partial sums, over the axis that splits that dimension or over
+    every axis that splits the leaf (``_step_split``). At ``fsdp`` 2 ×
+    ``tensor`` 2 a conv or dense kernel's two factored dimensions are the
+    two split ones, so ``v_row``'s and ``v_col``'s means run over different
+    axes.
     """
 
     def __init__(self, params, lr: float, decay_rate: float = 0.8, eps: float = 1e-30,
@@ -192,14 +194,14 @@ class Adafactor(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                dim, shape = (None, p.shape) if self.sharding is None else self.sharding.layout(p)
+                lay, shape = (None, p.shape) if self.sharding is None else self.sharding.layout(p)
                 dims = factored_dims(shape)
                 st = self._init_state(p, dims, group["momentum"])
                 t = torch.tensor(st["step"] + 1, dtype=torch.float32)
                 decay = float(1.0 - t ** -group["decay_rate"])
                 g = p.grad.float()
-                if dim is not None:
-                    split.append(SimpleNamespace(p=p, g=g, st=st, dim=dim, shape=shape,
+                if lay is not None and lay.axes:
+                    split.append(SimpleNamespace(p=p, g=g, st=st, lay=lay, shape=shape,
                                                  dims=dims, decay=decay))
                     continue
                 g2 = g * g + eps
@@ -215,69 +217,92 @@ class Adafactor(torch.optim.Optimizer):
                     u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
                 p_rms = p.float().square().mean().sqrt() if scale else None
                 self._apply(p, u, u.square().mean().sqrt(), p_rms, group)
-            for axis in ("fsdp", "tensor"):
-                recs = [r for r in split if self.sharding.split_of(r.p)[0] == axis]
-                if recs:
-                    self._step_split(recs, group, self.sharding.axis_group(axis)[2])
+            if split:
+                self._step_split(split, group)
 
-    def _step_split(self, recs, group: dict, ranks) -> None:
-        """``step`` for the parameters split over the process group
-        ``ranks``: local partial sums, one all-reduce of all of them, the
-        updates, one all-reduce of their squared sums, the rest."""
+    def _sum(self, parts) -> None:
+        """All-reduce (SUM) in place each (tensor, axes) of ``parts`` over
+        the ranks along its axes: one bucketed all-reduce a set of axes."""
+        for axes in dict.fromkeys(axes for _, axes in parts):
+            all_reduce_([t for t, a in parts if a == axes], group=self.sharding.group(axes))
+
+    def _step_split(self, recs, group: dict) -> None:
+        """``step`` for the parameters split over the mesh, each a block
+        split along one dimension or two (``Layout``): local partial sums,
+        then three rounds of all-reduces for all of them at once. A
+        factored mean over a split dimension is a sum over that dimension's
+        axis (so ``v_row``'s and ``v_col``'s means may each run over
+        another axis), the update's and the parameter's RMS sums over every
+        axis that splits the leaf. Round 1: the factored sums and the
+        parameter's; round 2: the sums of ``v_row`` over a split larger
+        dimension (which need round 1's rows); round 3: the updates'."""
         eps, scale = group["eps"], group["multiply_by_parameter_scale"]
-        sums = []
+        first, second, third = [], [], []
         for r in recs:
+            r.split = {d: (a,) for a, d in (("fsdp", r.lay.fsdp), ("tensor", r.lay.tensor))
+                       if d is not None}
             g2 = r.g * r.g + eps
             if r.dims is None:
                 r.st["v"] = r.decay * r.st["v"] + (1.0 - r.decay) * g2
                 r.u = r.g * r.st["v"] ** -0.5
             else:
                 d1, d0 = r.dims
-                r.row = g2.sum(d0) if r.dim == d0 else g2.mean(d0)
-                r.col = g2.sum(d1) if r.dim == d1 else g2.mean(d1)
-                sums += [r.row] if r.dim == d0 else [r.col] if r.dim == d1 else []
-                if r.dim == d1:  # v_row is split along d1, whole along the rest
-                    r.v_row = r.decay * r.st["v_row"] + (1.0 - r.decay) * r.row
-                    r.row_sum = r.v_row.sum(d1 - 1 if d1 > d0 else d1, keepdim=True)
-                    sums.append(r.row_sum)
+                r.row = g2.sum(d0) if d0 in r.split else g2.mean(d0)
+                r.col = g2.sum(d1) if d1 in r.split else g2.mean(d1)
+                first += [(t, r.split[d]) for t, d in ((r.row, d0), (r.col, d1)) if d in r.split]
             if scale:
                 r.p_sq = r.p.float().square().sum()
-                sums.append(r.p_sq)
-        all_reduce_(sums, group=ranks)
+                first.append((r.p_sq, r.lay.axes))
+        self._sum(first)
         for r in recs:
             if r.dims is not None:
                 d1, d0 = r.dims
-                row_dim = d1 - 1 if d1 > d0 else d1
-                if r.dim == d1:
-                    r.st["v_row"] = r.v_row
-                    row_mean = r.row_sum / r.shape[d1]
-                    col = r.col / r.shape[d1]
+                row = r.row / r.shape[d0] if d0 in r.split else r.row
+                r.st["v_row"] = r.decay * r.st["v_row"] + (1.0 - r.decay) * row
+                if d1 in r.split:  # v_row is split along d1
+                    r.row_sum = r.st["v_row"].sum(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    second.append((r.row_sum, r.split[d1]))
+        self._sum(second)
+        for r in recs:
+            if r.dims is not None:
+                d1, d0 = r.dims
+                if d1 in r.split:
+                    row_mean, col = r.row_sum / r.shape[d1], r.col / r.shape[d1]
                 else:
-                    row = r.row / r.shape[d0] if r.dim == d0 else r.row
-                    r.st["v_row"] = r.decay * r.st["v_row"] + (1.0 - r.decay) * row
-                    row_mean = r.st["v_row"].mean(row_dim, keepdim=True)
+                    row_mean = r.st["v_row"].mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
                     col = r.col
                 r.st["v_col"] = r.decay * r.st["v_col"] + (1.0 - r.decay) * col
                 row = (r.st["v_row"] / row_mean) ** -0.5
                 r.u = r.g * row.unsqueeze(d0) * (r.st["v_col"] ** -0.5).unsqueeze(d1)
             r.u_sq = r.u.square().sum()
-        all_reduce_([r.u_sq for r in recs], group=ranks)
+            third.append((r.u_sq, r.lay.axes))
+        self._sum(third)
         for r in recs:
             n = math.prod(r.shape)
             p_rms = (r.p_sq / n).sqrt() if scale else None
             self._apply(r.p, r.u, (r.u_sq / n).sqrt(), p_rms, group)
 
 
-def state_split_dim(key: str, state: torch.Tensor, dim: int, shape) -> Optional[int]:
+def state_split_dim(key: str, state: torch.Tensor, dim: Optional[int], shape) -> Optional[int]:
     """The dimension along which optimizer state ``key`` of a parameter of
-    whole shape ``shape``, split along ``dim``, is split (None: whole on
-    every rank). Adafactor's factored rows and columns drop one of the
-    factored dims: they are whole when that is the split one."""
+    whole shape ``shape``, split along ``dim`` (None: whole), is split
+    (None: whole on every rank). Adafactor's factored rows and columns drop
+    one of the factored dims: they are whole when that is the split one."""
+    if dim is None:
+        return None
     if key in ("v_row", "v_col"):
         d1, d0 = factored_dims(shape)
         dropped = d0 if key == "v_row" else d1
         return None if dim == dropped else dim - (dim > dropped)
     return dim if state.ndim == len(shape) else None
+
+
+def state_layout(key: str, state: torch.Tensor, layout, shape):
+    """The ``parallel.Layout`` of optimizer state ``key`` of a parameter of
+    whole ``shape`` laid out as ``layout``: ``state_split_dim`` for each
+    axis's dimension."""
+    return layout._replace(tensor=state_split_dim(key, state, layout.tensor, shape),
+                           fsdp=state_split_dim(key, state, layout.fsdp, shape))
 
 
 def _dtype(name) -> Optional[torch.dtype]:

@@ -6,11 +6,11 @@ copy of each on the card.
 
 The state knows how its model is laid out over the ranks (``sharding``, a
 ``parallel.fsdp.Sharding``; by default nothing split, every rank on the
-``data`` axis). Under an ``fsdp`` or a ``tensor`` axis the model's
-parameters, the optimizer's state and the EMA are this rank's blocks; ``state_dict`` and
-``load_state_dict`` gather and split them, so a checkpoint has the
-one-process format whatever the mesh, as orbax restores global arrays into
-any sharding.
+``data`` axis). Under an ``fsdp`` or a ``tensor`` axis, or both, the
+model's parameters, the optimizer's state and the EMA are this rank's
+blocks; ``state_dict`` and ``load_state_dict`` gather and split them over
+both axes, so a checkpoint has the one-process format whatever the mesh, as
+orbax restores global arrays into any sharding.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 
 from siss_tpu_torch.parallel.fsdp import Sharding, shard_module
 from siss_tpu_torch.train.ema import EMAState
-from siss_tpu_torch.train.optim import Schedule, state_split_dim
+from siss_tpu_torch.train.optim import Schedule, state_layout
 
 
 @dataclasses.dataclass
@@ -54,24 +54,23 @@ class TrainState:
         if self.ema is None:
             return None
         sh = self.sharding
-        return dict(zip(sh.names, sh.gather_host(self.ema.params, sh.dims)))
+        return dict(zip(sh.names, sh.gather_host(self.ema.params)))
 
     def _optimizer_layout(self, state: Dict[int, Dict[str, Any]]):
-        """(index, key, split dim, axis, chunks) of each split tensor of an
-        optimizer state dict's ``state``."""
+        """(index, key, ``Layout``) of each split tensor of an optimizer
+        state dict's ``state``."""
         sh = self.sharding
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         out = []
         for idx in sorted(state):
-            dim, shape = sh.layout(params[idx])
-            if dim is None:
+            lay, shape = sh.layout(params[idx])
+            if not lay.axes:
                 continue
-            axis, chunks = sh.split_of(params[idx])
             for key, value in state[idx].items():
                 if isinstance(value, torch.Tensor):
-                    split = state_split_dim(key, value, dim, shape)
-                    if split is not None:
-                        out.append((idx, key, split, axis, chunks))
+                    split = state_layout(key, value, lay, shape)
+                    if split.axes:
+                        out.append((idx, key, split))
         return out
 
     def state_dict(self) -> Dict[str, Any]:
@@ -82,10 +81,9 @@ class TrainState:
         layout = self._optimizer_layout(opt["state"])
         if layout:
             state = {idx: dict(st) for idx, st in opt["state"].items()}
-            _, _, dims, axes, chunks = (list(col) for col in zip(*layout))
-            whole = self.sharding.gather_host([state[i][k] for i, k, *_ in layout], dims, axes,
-                                              chunks)
-            for (i, k, *_), t in zip(layout, whole):
+            whole = self.sharding.gather_host([state[i][k] for i, k, _ in layout],
+                                              [lay for *_, lay in layout])
+            for (i, k, _), t in zip(layout, whole):
                 state[i][k] = t
             opt = {**opt, "state": state}
         ema = None if self.ema is None else {"params": self.ema_state_dict(), "step": self.ema.step}
@@ -100,8 +98,8 @@ class TrainState:
         layout = self._optimizer_layout(opt["state"])
         if layout:
             state = {idx: dict(st) for idx, st in opt["state"].items()}
-            for i, k, d, axis, chunks in layout:
-                state[i][k] = sh.take(state[i][k], d, axis, chunks).clone()
+            for i, k, lay in layout:
+                state[i][k] = sh.take(state[i][k], lay).clone()
             opt = {**opt, "state": state}
         self.optimizer.load_state_dict(opt)
         self.step = int(sd["step"])
@@ -109,9 +107,8 @@ class TrainState:
             raise ValueError("the checkpoint's EMA does not match this state's use_ema")
         if self.ema is not None:
             with torch.no_grad():
-                for e, name, dim, axis, chunks in zip(self.ema.params, sh.names, sh.dims,
-                                                      sh.axes, sh.chunks):
-                    e.copy_(sh.take(sd["ema"]["params"][name], dim, axis, chunks))
+                for e, name, lay in zip(self.ema.params, sh.names, sh.layouts):
+                    e.copy_(sh.take(sd["ema"]["params"][name], lay))
             self.ema.step = int(sd["ema"]["step"])
 
     def held_bytes(self) -> Dict[str, int]:

@@ -69,14 +69,20 @@ combine, the clip, the optimizer and the EMA run on the blocks.
 
 The ``tensor`` axis (``parallel.tensor``; the JAX package's ``_tp_spec``
 placement): the model is this rank's local model, which computes on its
-blocks of the Megatron-role parameters (never gathered) and all-reduces
-each block's partial output in its forward. The ranks of a tensor group
-take the same rows of the batch (``rank_rows`` by the mesh's batch
-coordinate). Their pulled gradients are their blocks' own, and the whole
-leaves' are the whole gradients, equal on every tensor rank, but for the
-whole biases a split layer uses only in its slice, which ``scatter_add_``
-sums over the tensor ranks; the norms and the clip sum the blocks' parts
-over the tensor ranks and count each whole leaf once.
+blocks of the Megatron-role parameters (never gathered over ``tensor``)
+and all-reduces each block's partial output in its forward. The ranks of a
+tensor group take the same rows of the batch (``rank_rows`` by the mesh's
+batch coordinate). Their pulled gradients are their blocks' own, and the
+whole leaves' are the whole gradients, equal on every tensor rank, but for
+the whole biases a split layer uses only in its slice, which
+``scatter_add_`` sums over the tensor ranks; the norms and the clip sum the
+blocks' parts over the tensor ranks and count each whole leaf once.
+
+Both axes (``data × fsdp × tensor``, JAX's ``_param_spec``): a Megatron
+block that ``fsdp`` splits once more is gathered over ``fsdp`` alone, to
+the tensor block the local model computes on; its gradient is
+reduce-scattered over ``fsdp`` and stays split over ``tensor``; and its
+parts of the norms are summed over the ``fsdp × tensor`` plane.
 """
 
 from __future__ import annotations
@@ -252,16 +258,18 @@ def _working_params(model: torch.nn.Module, sharding: Sharding, dtype: Optional[
     """(the tensors the step pulls its gradients with respect to, a
     ``call(fn)`` that runs ``fn(model)`` with the model computing from
     them): the parameters themselves, or, when some are split over the
-    ``fsdp`` ranks or ``dtype`` casts them, the whole parameters gathered
-    (in ``dtype``; collective). Blocks split over the ``tensor`` ranks are
-    never gathered: the local model computes on them. A model that
-    computes in fp32 sees cast copies upcast again, as flax promotes them."""
+    ``fsdp`` ranks or ``dtype`` casts them, the parameters gathered over
+    ``fsdp`` (in ``dtype``; collective). Blocks split over the ``tensor``
+    ranks are never gathered over ``tensor``: the local model computes on
+    them, and on the tensor block a leaf split over both axes is gathered
+    back to. A model that computes in fp32 sees cast copies upcast again,
+    as flax promotes them."""
     params = list(model.parameters())
     if dtype is None and not sharding.gathers:
         return params, lambda fn: fn(model)
-    whole = sharding.gather(dtype=dtype, axes=("fsdp",))
-    leaves = [p if t.dtype == p.dtype and axis != "fsdp" else t.requires_grad_()
-              for p, t, axis in zip(params, whole, sharding.axes)]
+    gathered = sharding.gather(dtype=dtype, axes=("fsdp",))
+    leaves = [p if t.dtype == p.dtype and lay.fsdp is None else t.requires_grad_()
+              for p, t, lay in zip(params, gathered, sharding.layouts)]
     compute = getattr(model, "dtype", torch.float32)
     swapped = {f"model.{name}": c if c.dtype == compute else c.to(p.dtype)
                for name, p, c in zip(sharding.names, params, leaves)}

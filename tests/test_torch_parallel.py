@@ -112,14 +112,15 @@ def test_mesh_resolve_matches_jax(data, fsdp, tensor, n):
 
 @pytest.mark.parametrize("mesh,item", [(MeshConfig(fsdp=2), "12b"), (MeshConfig(tensor=2), "12c")])
 def test_unported_axes_raise(mesh, item):
-    """The fsdp axis (item 12b) and the tensor axis at fsdp 1 (item 12c(i))
-    are ported and resolve; the two together (item 12c(ii)) raise."""
+    """The fsdp axis (item 12b) and the tensor axis (item 12c) are ported
+    and resolve, alone and together (tests/test_torch_tensor_fsdp.py runs
+    them together)."""
     if item == "12b":
         assert resolve_mesh(mesh, 4) == MeshConfig(2, 2, 1)
     else:
         assert resolve_mesh(mesh, 4) == MeshConfig(2, 1, 2)
-        with pytest.raises(NotImplementedError, match=re.escape("item 12c(ii)")):
-            resolve_mesh(MeshConfig(fsdp=2, tensor=2), 4)
+        assert resolve_mesh(MeshConfig(fsdp=2, tensor=2), 4) == MeshConfig(1, 2, 2)
+        assert resolve_mesh(MeshConfig(data=2, fsdp=2, tensor=2), 8) == MeshConfig(2, 2, 2)
     assert resolve_mesh(MeshConfig(), 4) == MeshConfig(4, 1, 1)
 
 

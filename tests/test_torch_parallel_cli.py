@@ -14,8 +14,10 @@ t-shirt run logs a one-process run's keys, and ``-m siss_tpu_torch.main``
 on two ranks resumes it from its checkpoint; an SD batch the ranks do not
 divide raises. With ``mesh.fsdp=2`` (a t-shirt UNet at 128 channels, wide
 enough to split), and with ``mesh.tensor=2`` (the tiny t-shirt UNet with an
-attention level), the ranks print the mesh, save one checkpoint of whole
-tensors that one process loads, and log a one-process run's keys.
+attention level), and with both on four ranks (``mesh.fsdp=2
+mesh.tensor=2``, that UNet at 128 channels), the ranks print the mesh, save
+one checkpoint of whole tensors that one process loads, and log a
+one-process run's keys.
 """
 
 import itertools
@@ -49,8 +51,8 @@ TSHIRT_28 = dict(sample_size=28, in_channels=1, out_channels=1,
                  norm_num_groups=8)
 
 
-def launch(*args, **env_extra):
-    """``torch.distributed.run`` with two ranks on the CPU. After
+def launch(*args, nproc=2, **env_extra):
+    """``torch.distributed.run`` with ``nproc`` ranks on the CPU. After
     ``TIMEOUT_S`` the launcher and every process under it are killed (its
     ranks run in sessions of their own) and the test fails. Returns (rc,
     output)."""
@@ -59,7 +61,7 @@ def launch(*args, **env_extra):
     env.update(OMP_NUM_THREADS="2", **env_extra)
     with tempfile.TemporaryFile("w+") as log:
         p = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                              "--nproc_per_node", "2", *args], cwd=ROOT, env=env, stdout=log,
+                              "--nproc_per_node", str(nproc), *args], cwd=ROOT, env=env, stdout=log,
                              stderr=subprocess.STDOUT, text=True)
         try:
             p.wait(timeout=TIMEOUT_S)
@@ -67,7 +69,7 @@ def launch(*args, **env_extra):
             for proc in psutil.Process(p.pid).children(recursive=True) + [psutil.Process(p.pid)]:
                 proc.kill()
             p.wait()
-            pytest.fail(f"two ranks did not finish in {TIMEOUT_S} s: {args}")
+            pytest.fail(f"{nproc} ranks did not finish in {TIMEOUT_S} s: {args}")
         log.seek(0)
         return p.returncode, log.read()
 
@@ -279,5 +281,42 @@ def test_delete_tshirt_tensor_on_two_ranks(npz, tmp_path):
     for i, st in state["optimizer"]["state"].items():
         assert st["exp_avg"].shape == st["exp_avg_sq"].shape == shapes[i]
     (task,) = cli.main(delete_args(npz, tmp_path / "one", "unused", *attn))
+    keys = [set().union(*map(set, rows_of(r))) for r in (task.cfg.output_dir, run)]
+    assert keys[0] == keys[1]
+
+
+def test_delete_tshirt_fsdp_tensor_on_four_ranks(npz, tmp_path):
+    """``mesh.fsdp=2 mesh.tensor=2`` on four ranks: the attention, GEGLU and
+    resnet blocks of the tensor axis split once more over fsdp (the UNet at
+    128 channels, wide enough for fsdp's 2^16-element floor); one run
+    directory, a whole checkpoint that one process loads, a one-process
+    run's keys."""
+    wide = ["unet.block_out_channels=[128,128]",
+            "unet.down_block_types=[DownBlock2D,AttnDownBlock2D]",
+            "unet.up_block_types=[AttnUpBlock2D,UpBlock2D]", "checkpoint_path=null"]
+    args = delete_args(npz, tmp_path / "out", "unused", *wide, "mesh.fsdp=2", "mesh.tensor=2")
+    (tmp_path / "record").mkdir()
+    rc, out = launch(WORKER, str(tmp_path / "record"), *args, nproc=4)
+    assert rc == 0, out[-4000:]
+    assert out.count("mesh=data 1 x fsdp 2 x tensor 2") == 4
+    records = [torch.load(tmp_path / "record" / f"rank{r}.pt", weights_only=False)
+               for r in range(4)]
+    for rec in records[1:]:
+        assert_equal_params([records[0], rec])
+    run = only_run(tmp_path / "out")
+    assert checkpoints(run) == ["checkpoint-3"]
+    assert sorted(r["_step"] for r in rows_of(run) if "loss_x/mean" in r) == [1, 2, 3]
+    mgr = CheckpointManager(str(run))
+    unet = UNet2D(UNet2DConfig(**{**TSHIRT_28, "block_out_channels": (128, 128),
+                                  "down_block_types": ("DownBlock2D", "AttnDownBlock2D"),
+                                  "up_block_types": ("AttnUpBlock2D", "UpBlock2D")}))
+    unet.load_state_dict(mgr.restore_item("latest", "unet"))
+    for k, v in unet.state_dict().items():
+        assert torch.equal(v, records[0]["params"][k]), k
+    state = mgr.restore_item("latest", "state")
+    shapes = [p.shape for p in unet.parameters()]
+    for i, st in state["optimizer"]["state"].items():
+        assert st["exp_avg"].shape == st["exp_avg_sq"].shape == shapes[i]
+    (task,) = cli.main(delete_args(npz, tmp_path / "one", "unused", *wide))
     keys = [set().union(*map(set, rows_of(r))) for r in (task.cfg.output_dir, run)]
     assert keys[0] == keys[1]

@@ -228,11 +228,13 @@ def test_preemption_saves_and_stops(npz, base_run, tmp_path):
 
 
 def test_unported_options_raise(npz, base_run, tmp_path):
-    # The likelihood metric is ported (tests/test_torch_tshirt_metrics.py).
-    # The tensor axis is ported at fsdp 1 (tests/test_torch_tensor.py); with
-    # an fsdp axis beside it (item 12c(ii)) it is not.
-    with pytest.raises(NotImplementedError, match=re.escape("item 12c(ii)")):
-        cli.main(delete_args(npz, tmp_path, base_run, "mesh.fsdp=2", "mesh.tensor=2"))
+    # The likelihood metric is ported (tests/test_torch_tshirt_metrics.py),
+    # and so is the tensor axis with an fsdp axis beside it (item 12c(ii);
+    # run on four ranks by tests/test_torch_parallel_cli.py): one process
+    # asked for fsdp 2 x tensor 2 is refused only for lacking the ranks.
+    with pytest.raises(ValueError, match=re.escape("mesh 1x2x2 != 1 devices")):
+        cli.main(delete_args(npz, tmp_path, base_run, "mesh.data=1", "mesh.fsdp=2",
+                             "mesh.tensor=2"))
 
 
 def test_checkpoint_rotation_latest_and_async(tmp_path):

@@ -21,10 +21,13 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (torch threads, no TF32)
+from torch_parity import CELEB_LIKE, TINY_UNET
 from siss_tpu.models.unet2d_cond import UNet2DCondition as FlaxUNet
 from siss_tpu.models.unet2d_cond import UNet2DConditionConfig as FlaxConfig
 from siss_tpu.utils.export import export_diffusers_state_dict
-from siss_tpu_torch.models import UNet2DCondition, UNet2DConditionConfig
+from siss_tpu_torch.models import (UNet2D, UNet2DCondition, UNet2DConditionConfig, UNet2DConfig,
+                                   build_unet, build_unet_cond)
+from siss_tpu_torch.models.unet2d import init_weights
 from siss_tpu_torch.ops import flash_attention as fa
 from siss_tpu_torch.utils.convert import params_from_flax, torch_key
 
@@ -168,3 +171,22 @@ def test_unported_and_unknown_knobs_raise(kw, exc, match):
         return
     with pytest.raises(exc, match=match):
         UNet2DCondition(cfg)
+
+
+@pytest.mark.parametrize("kind", ["cond", "multi", "single"])
+def test_builders_draw_the_weights_init_weights_draws(kind):
+    """``build_unet_cond`` and ``build_unet`` build the module on the meta
+    device, skipping torch's default initialisation: every parameter must
+    still be ``init_weights``' own, bit for bit, as when the module is built
+    on the host first."""
+    if kind == "cond":
+        cfg = UNet2DConditionConfig(**TINY16)
+        built, cls = build_unet_cond(cfg, seed=3, device="cpu"), UNet2DCondition
+    else:
+        cfg = UNet2DConfig(**(TINY_UNET if kind == "multi" else CELEB_LIKE))
+        built, cls = build_unet(cfg, seed=3, device="cpu"), UNet2D
+    want = init_weights(cls(cfg), torch.Generator().manual_seed(3)).state_dict()
+    got = built.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

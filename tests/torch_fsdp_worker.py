@@ -77,19 +77,19 @@ def norms(mesh) -> dict:
     """The surgery's norms, scale and result and ``global_norm`` on the
     blocks of ``surgery_trees``, for SISS and EraseDiff."""
     sharding = shard_module(Leaves(), mesh, min_size=1024)
-    assert sharding.dims == [0, None], sharding.dims
+    assert [lay.fsdp for lay in sharding.layouts] == [0, None], sharding.layouts
     out = {}
     for loss_fn in ("importance_sampling_with_mixture", "erasediff"):
         g_x, g_a = surgery_trees()
-        g_x = [sharding.take(t, d).clone() for t, d in zip(g_x, sharding.dims)]
-        g_a = [sharding.take(t, d).clone() for t, d in zip(g_a, sharding.dims)]
+        g_x = [sharding.take(t, lay).clone() for t, lay in zip(g_x, sharding.layouts)]
+        g_a = [sharding.take(t, lay).clone() for t, lay in zip(g_a, sharding.layouts)]
         out[f"norm_a_{loss_fn}"] = float(global_norm(g_a, sharding))
         metrics = {}
         final, pre = _surgery(DeletionStepConfig(loss_fn=loss_fn, scaling_norm=5.0, eta=10.0),
                               sharding, g_x, g_a, metrics)
         out[loss_fn] = {"metrics": {k: float(v) for k, v in metrics.items()},
                         "pre_clip_norm": float(pre),
-                        "final": sharding.gather_along(final, sharding.dims)}
+                        "final": sharding.gather_along(final, sharding.layouts)}
     return out
 
 

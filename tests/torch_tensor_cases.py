@@ -104,9 +104,13 @@ def case_step(name: str):
 
 
 def layout(state: TrainState) -> dict:
+    """Each parameter's split dimension (None: whole), the axes that split
+    it ("fsdp", "tensor" or "fsdp+tensor"; None), its chunks, and whether it
+    is a whole leaf used in slices."""
     sh = state.sharding
-    return {"dims": list(sh.dims), "chunks": list(sh.chunks), "partial": list(sh.partial),
-            "axes": list(sh.axes)}
+    return {"dims": [lay.tensor if lay.tensor is not None else lay.fsdp for lay in sh.layouts],
+            "chunks": [lay.chunks for lay in sh.layouts], "partial": list(sh.partial),
+            "axes": ["+".join(lay.axes) or None for lay in sh.layouts]}
 
 
 def run_case(name: str, inputs: dict, mesh=None, start=0, stop=None, state_dict=None) -> dict:
