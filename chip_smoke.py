@@ -106,6 +106,27 @@ prints no result):
    variant) on the card with the golden synthetic weights
    (``tests/goldens/inception_fid_golden.npz``, TF32 off) must give the
    recorded features within 1e-3, and is timed at batch 64 × 299².
+7c. Serving and diffusers model directories on 7b's final bundle
+   (celebahq_256, 113,673,219 parameters), copied with a stand-in
+   ``unet_ema`` (its ``unet`` plus 2⁻¹⁰: the shipped config keeps no EMA):
+   (a) ``export_bundle_to_diffusers``
+   writes ``unet/`` and ``unet_ema/`` (``config.json`` and an fp32
+   ``diffusion_pytorch_model.bin``), each imported back by
+   ``import_hf_unet`` into a fresh UNet equal bit for bit to the bundle's
+   tensors; (b) the exported ``unet`` renamed to the pre-0.18 attention
+   names (google/ddpm-celebahq-256's ``query``/``key``/``value``/
+   ``proj_attn``, the mid-block's q, k and v as [O, I, 1]) loads through
+   ``convert_unet2d`` bit for bit, and with one extra tensor raises; (c)
+   a ``SamplerService`` on the bundle in bf16 on the card behind a
+   ``ThreadingHTTPServer`` on 127.0.0.1: ``/healthz``, ``POST /sample``
+   of 4 images by 50 DDPM and by 25 DPM-Solver++ steps sent at once from
+   two threads, each again with its seed (the same PNG bytes), both keys
+   listed by ``/healthz``, 400 on a malformed body, and each served grid
+   equal to the port's sampler called directly with that seed on the same
+   weights, cuDNN deterministic. It prints each request's seconds (its
+   key's first, cold, and again, warm), images/s, peak memory, the five kernel
+   families' launches (all 0: the served UNet runs cuDNN, GroupNorm and the
+   plain attention) and the bytes written (``/proc/self/io``).
 8. The SD main path at full width (``profile_step.make_sd_path``, the
    ``configs/delete_sd.yaml`` step of ``bench.py --workload sd`` with
    ``attention_impl="flash"``): the sd_v1 UNet, microbatch 1 × 16
@@ -1208,7 +1229,8 @@ def write_image_folder(root: Path, n: int, size: int) -> None:
 
 def phase_celeb_task(torch, card):
     """The shipped delete_celeb config through the port's command line at
-    full width for CELEB_STEPS steps, with FID and membership turned on."""
+    full width for CELEB_STEPS steps, with FID and membership turned on;
+    returns the run's final bundle."""
     import shutil
 
     from siss_tpu_torch import main as cli
@@ -1271,6 +1293,10 @@ def phase_celeb_task(torch, card):
               {f"{r['_step']} {k}": round(v, 6) for r in rows for k, v in r.items()
                if k.startswith(("membership_loss/", "metrics/fid"))}, sort_keys=True))
     inception_on_card(torch, card)
+    bundle = Path(str(task.cfg.output_dir)) / f"checkpoint-{CELEB_STEPS}"
+    if not (bundle / "unet" / "item.pt").is_file():
+        raise AssertionError(f"celeb task: no final bundle at {bundle}")
+    return bundle
 
 
 def inception_on_card(torch, card):
@@ -1315,6 +1341,222 @@ def inception_on_card(torch, card):
           f"({INCEPTION_BATCH / ms * 1e3:.1f} img/s, fp32, TF32 off); bound {bound_ms:.3f} ms "
           f"({sum(flops) / 1e9:.3f} GFLOP an image at {H100_FP32_FLOPS / 1e12:.0f} TFLOP/s): "
           f"{bound_ms / ms:.1%} of it")
+
+
+CELEB_PARAMS = 113_673_219    # UNet2DConfig.celebahq_256()'s parameters
+# Phase 7c's requests: (body, seed of its repeat); sent at once, then each
+# again with its seed.
+SERVE_REQUESTS = ({"n": 4, "steps": 50, "sampler": "ddpm", "seed": 7},
+                  {"n": 4, "steps": 25, "sampler": "dpm", "seed": 8})
+LEGACY_ATTENTION = {".to_q.": ".query.", ".to_k.": ".key.", ".to_v.": ".value.",
+                    ".to_out.0.": ".proj_attn."}
+
+
+def io_written() -> dict:
+    """This process's ``/proc/self/io`` write counts: ``wchar`` (bytes passed
+    to write calls) and ``write_bytes`` (bytes the storage layer accounted
+    to it)."""
+    with open("/proc/self/io") as f:
+        fields = dict(line.split(":") for line in f if line.strip())
+    return {k: int(fields[k]) for k in ("wchar", "write_bytes")}
+
+
+def legacy_names(sd: dict) -> dict:
+    """A diffusers ≥ 0.18 state dict under google/ddpm-celebahq-256's
+    pre-0.18 attention names, the mid-block's q, k and v as [O, I, 1]."""
+    out = {}
+    for k, v in sd.items():
+        for new, old in LEGACY_ATTENTION.items():
+            k = k.replace(new, old)
+        if k.startswith("mid_block.attentions.") and k.endswith(
+                (".query.weight", ".key.weight", ".value.weight")):
+            v = v[:, :, None]
+        out[k] = v
+    return out
+
+
+def assert_same_tensors(torch, label: str, got: dict, want: dict) -> None:
+    """The same keys, and under each the same dtype, shape and values."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: keys differ: {sorted(set(got) ^ set(want))[:6]}")
+    bad = [k for k, v in want.items() if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} tensors differ, e.g. {bad[:4]}")
+
+
+def http(url: str, body: bytes = None):
+    """(status, bytes, seconds) of a GET, or of a POST of ``body``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def phase_serve(torch, card, bundle: Path):
+    """7c: phase 7b's final bundle, with a stand-in EMA, exported to
+    diffusers directories and imported back, under the legacy names too,
+    then served over HTTP."""
+    import io
+    import shutil
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from siss_tpu_torch.diffusion.sampling import sample_ddpm, sample_dpm_solver_2m
+    from siss_tpu_torch.evaluate import Evaluator
+    from siss_tpu_torch.models import UNet2D, UNet2DConfig
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+    from siss_tpu_torch.serve import SamplerService, make_handler
+    from siss_tpu_torch.train import unet_eps_apply
+    from siss_tpu_torch.utils import CheckpointManager
+    from siss_tpu_torch.utils.export import export_bundle_to_diffusers
+    from siss_tpu_torch.utils.hf_convert import (convert_unet2d, import_hf_unet,
+                                                 load_torch_state_dict)
+
+    written0 = io_written()
+    torch.backends.cudnn.deterministic = True
+    unet = torch.load(bundle / "unet" / "item.pt", map_location="cpu", weights_only=True)
+    ema = {k: v + 2.0 ** -10 if v.is_floating_point() else v for k, v in unet.items()}
+    bundle = Path(CheckpointManager(str(bundle.parent / "with_ema")).save_bundle(
+        int(bundle.name.split("-")[-1]), {"unet": unet, "unet_ema": ema}))
+    del unet, ema
+    ucfg = UNet2DConfig.celebahq_256()
+
+    def fresh():
+        with torch.device("meta"):
+            model = UNet2D(ucfg)
+        return model.to_empty(device="cpu")
+
+    # (a) both items to diffusers directories, each imported back
+    out = bundle.parent / "exported"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    dirs = export_bundle_to_diffusers(str(bundle), ucfg, str(out))
+    export_s = time.perf_counter() - t0
+    if sorted(dirs) != ["unet", "unet_ema"]:
+        raise AssertionError(f"serve (a): exported {sorted(dirs)}, expected unet and unet_ema")
+    items = {}
+    t0 = time.perf_counter()
+    for item, path in dirs.items():
+        items[item] = torch.load(bundle / item / "item.pt", map_location="cpu", weights_only=True)
+        model = import_hf_unet(path, fresh())
+        n = sum(p.numel() for p in model.parameters())
+        if n != CELEB_PARAMS:
+            raise AssertionError(f"serve (a): {item} has {n:,} parameters, expected "
+                                 f"{CELEB_PARAMS:,}")
+        assert_same_tensors(torch, f"serve (a): {item} imported back", model.state_dict(),
+                            items[item])
+    import_s = time.perf_counter() - t0
+    if all(torch.equal(v, items["unet_ema"][k]) for k, v in items["unet"].items()):
+        raise AssertionError("serve (a): unet and unet_ema are equal: the export is not tested")
+
+    # (b) the exported state dict under the pre-0.18 names
+    legacy = legacy_names(load_torch_state_dict(dirs["unet"]))
+    convs = [k for k, v in legacy.items() if v.ndim == 3]
+    if len(convs) != 3 or not any(".proj_attn." in k for k in legacy):
+        raise AssertionError(f"serve (b): legacy names not exercised ({convs})")
+    model = fresh()
+    model.load_state_dict(convert_unet2d(legacy, model))
+    assert_same_tensors(torch, "serve (b): legacy import", model.state_dict(), items["unet"])
+    try:
+        convert_unet2d({**legacy, "mid_block.attentions.0.rel_pos.weight": legacy[convs[0]]},
+                       model)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("serve (b): a state dict with an extra tensor loaded")
+    del model, legacy
+
+    # (c) the service on the bundle in bf16 behind a ThreadingHTTPServer
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = SamplerService(str(bundle), arch="celebahq_256", dtype=torch.bfloat16,
+                         device="cuda")
+    load_s = time.perf_counter() - t0
+    assert_same_tensors(torch, "serve (c): served weights", {k: v.cpu() for k, v in
+                                                       svc.model.state_dict().items()},
+                        items["unet"])
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    code, body, _ = http(f"{url}/healthz")
+    health = json.loads(body)
+    if code != 200 or health != {"ok": True, "model": "celebahq_256", "compiled": []}:
+        raise AssertionError(f"serve (c): /healthz {code} {health}")
+    cold = [None] * len(SERVE_REQUESTS)
+
+    def ask(i):
+        cold[i] = http(f"{url}/sample", json.dumps(SERVE_REQUESTS[i]).encode())
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(SERVE_REQUESTS))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    both_s = time.perf_counter() - t0
+    warm = [http(f"{url}/sample", json.dumps(r).encode()) for r in SERVE_REQUESTS]
+    for r, (c_code, c_png, _), (w_code, w_png, _) in zip(SERVE_REQUESTS, cold, warm):
+        if c_code != 200 or w_code != 200 or c_png[:4] != b"\x89PNG":
+            raise AssertionError(f"serve (c): {r} answered {c_code} {c_png[:300]!r}, then "
+                                 f"{w_code} {w_png[:300]!r}")
+        if c_png != w_png:
+            raise AssertionError(f"serve (c): {r} again with its seed gave other PNG bytes")
+    code, body, _ = http(f"{url}/healthz")
+    keys = sorted(tuple(k) for k in json.loads(body)["compiled"])
+    want_keys = sorted((r["n"], r["steps"], r["sampler"]) for r in SERVE_REQUESTS)
+    if keys != want_keys:
+        raise AssertionError(f"serve (c): /healthz lists {keys}, expected {want_keys}")
+    code, body, _ = http(f"{url}/sample", b'{"n": "x"}')
+    if code != 400 or "error" not in json.loads(body):
+        raise AssertionError(f"serve (c): a malformed body gave {code} {body[:200]!r}")
+    server.shutdown()
+    server.server_close()
+    thread.join()
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    # The served grids against the port's sampler called directly.
+    for r, (_, png, _) in zip(SERVE_REQUESTS, warm):
+        fn = sample_dpm_solver_2m if r["sampler"] == "dpm" else sample_ddpm
+        x = fn(lambda x, t, c: unet_eps_apply(svc.model, x, t, c), svc.schedule,
+               (r["n"], *svc.shape), r["steps"],
+               generator=torch.Generator(device=svc.device).manual_seed(r["seed"]))
+        grid = Evaluator.make_grid_from_images(np.clip((x.float().cpu().numpy() + 1) / 2, 0, 1))
+        served = np.asarray(Image.open(io.BytesIO(png)))
+        want = (grid * 255).astype(np.uint8)
+        if served.shape != want.shape or not np.array_equal(served, want):
+            diff = (np.abs(served.astype(int) - want.astype(int)).max()
+                    if served.shape == want.shape else served.shape)
+            raise AssertionError(f"serve (c): {r}'s served grid differs from the sampler's own "
+                                 f"call (largest difference {diff})")
+    torch.backends.cudnn.deterministic = False
+    if any(counts.values()) or not {"siss_reduce", "siss_bwd", "flash_fwd", "flash_bwd_dkv",
+                                     "flash_bwd_dq"} <= set(counts):
+        raise AssertionError(f"serve (c): launch counts {counts}, expected every kernel 0")
+    del svc
+    torch.cuda.empty_cache()
+    print(f"serve ({card}): export of unet and unet_ema {export_s:.2f} s, imported back bit for "
+          f"bit in {import_s:.2f} s ({CELEB_PARAMS:,} params); legacy names (3 [O, I, 1] "
+          f"convs) bit for bit, an extra tensor refused; service built in {load_s:.2f} s")
+    for r, (_, _, c_s), (_, _, w_s) in zip(SERVE_REQUESTS, cold, warm):
+        print(f"serve ({card}) {json.dumps(r, sort_keys=True)}: cold {c_s:.3f} s (both at once "
+              f"in {both_s:.3f} s), warm {w_s:.3f} s = {r['n'] / w_s:.2f} img/s")
+    exported = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    written = {k: (v - written0[k]) / 1e9 for k, v in io_written().items()}
+    print(f"serve ({card}): peak memory {peak / 2**30:.2f} GiB, launches {counts}; written "
+          f"(/proc/self/io) wchar {written['wchar']:.3f} GB, write_bytes "
+          f"{written['write_bytes']:.3f} GB; the two directories hold {exported / 1e9:.3f} GB")
 
 
 SD_WORK = ROOT / "build" / "chip_smoke_sd"
@@ -2738,7 +2980,8 @@ def main() -> int:
     phase("6b", phase_tshirt_objectives, torch, card, base, siss_ratios)
     phase("6c", phase_classifier, torch, card, base)
     celeb_counts = phase("7", phase_main_path, torch)
-    phase("7b", phase_celeb_task, torch, card)
+    bundle = phase("7b", phase_celeb_task, torch, card)
+    phase("7c", phase_serve, torch, card, bundle)
     sd_counts = phase("8", phase_sd_path, torch)
     phase("8b", phase_sd_task, torch, card)
     phase("8c(b)", phase_sd_knobs, torch, card)

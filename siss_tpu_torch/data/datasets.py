@@ -92,8 +92,9 @@ class ArrayDataset:
 
 
 class LabeledImageDataset(ArrayDataset):
-    """Integer-labelled image set with deletion-class filtering, from arrays
-    or from an ``.npz`` holding ``images`` and ``labels``."""
+    """Integer-labelled image set with deletion-class filtering, from arrays,
+    from an ``.npz`` holding ``images`` and ``labels``, or from a Hugging
+    Face dataset."""
 
     def __init__(self, filter: str, images: np.ndarray, labels: np.ndarray,
                  class_to_remove: Optional[int] = None, normalize: bool = True):
@@ -114,6 +115,18 @@ class LabeledImageDataset(ArrayDataset):
                  normalize: bool = True) -> "LabeledImageDataset":
         with np.load(path) as data:
             return cls(filter, data["images"], data["labels"], class_to_remove, normalize)
+
+    @classmethod
+    def from_hf(cls, filter: str, name: str, split: str = "train", image_key: str = "image",
+                class_to_remove: Optional[int] = None, normalize: bool = True
+                ) -> "LabeledImageDataset":
+        """From the Hugging Face ``datasets`` package (imported here, when
+        called: it is optional, and offline it needs a local cache)."""
+        import datasets as hfds
+
+        ds = hfds.load_dataset(name, split=split)
+        images = np.stack([_to_nhwc(np.asarray(x)) for x in ds[image_key]])
+        return cls(filter, images, np.asarray(ds["label"]), class_to_remove, normalize)
 
 
 class SDData:

@@ -11,24 +11,29 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 
 
 class BatchLoader:
-    """dataset + index sampler → infinite iterator of stacked batches.
+    """dataset + index sampler → infinite iterator of batches.
 
-    ``skip_batches`` (settable before the first ``next``) drops that many
-    leading batches at the sampler level, reading no images: the resume
-    fast-forward."""
+    ``collate`` turns a list of items into a batch (default: stack arrays,
+    and stack each field of tuple items). A finite sampler's last, short
+    batch is dropped unless ``drop_last=False``. ``skip_batches`` (settable
+    before the first ``next``) drops that many leading batches at the
+    sampler level, reading no images: the resume fast-forward."""
 
     def __init__(self, dataset, sampler, batch_size: int, prefetch: int = 2,
+                 collate: Optional[Callable] = None, drop_last: bool = True,
                  skip_batches: int = 0):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
+        self.collate = collate or default_collate
         self.prefetch = prefetch
+        self.drop_last = drop_last
         self.skip_batches = skip_batches
 
     def _batches(self) -> Iterator[Any]:
@@ -40,8 +45,10 @@ class BatchLoader:
                 continue
             buf.append(self.dataset[idx])
             if len(buf) == self.batch_size:
-                yield np.stack(buf)
+                yield self.collate(buf)
                 buf = []
+        if buf and not self.drop_last:  # a finite sampler's tail
+            yield self.collate(buf)
 
     def __iter__(self) -> Iterator[Any]:
         if self.prefetch <= 0:
@@ -88,6 +95,13 @@ class BatchLoader:
                     q.get_nowait()
                 except queue.Empty:
                     break
+
+
+def default_collate(items):
+    """Stack array items; stack tuple items field by field."""
+    if isinstance(items[0], tuple):
+        return tuple(np.stack([it[i] for it in items]) for i in range(len(items[0])))
+    return np.stack(items)
 
 
 def dual_stream(keep_iter: Iterator, forget_iter: Iterator, accum_steps: int) -> Iterator[dict]:

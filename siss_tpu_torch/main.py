@@ -25,6 +25,9 @@ and takes its share of every batch. Every rank uses rank 0's
 and EMA over pairs of ranks, ``mesh.tensor=2`` its attention, GEGLU and
 resnet layers Megatron-style, and both together split a layer's blocks
 once more over ``fsdp``); each rank prints the resolved mesh.
+
+``--profile`` runs each task inside ``torch.profiler.profile`` and writes
+its Chrome trace under ``output_dir/profile`` (``rank<r>.*.pt.trace.json``).
 """
 
 from __future__ import annotations
@@ -53,7 +56,26 @@ def _expand_multirun(overrides):
         yield [f"{k}={v}" for k, v in combo]
 
 
-def _run_one(config_name, overrides, config_dir, device):
+def _run_profiled(task, output_dir: str) -> None:
+    """``task.run()`` inside ``torch.profiler.profile``, its Chrome trace
+    written under ``output_dir/profile`` (the CUDA activity too when the
+    task runs on a card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if task.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    trace_dir = os.path.join(output_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir, worker_name=f"rank{rank()}")):
+        task.run()
+        if task.device.type == "cuda":
+            torch.cuda.synchronize(task.device)
+
+
+def _run_one(config_name, overrides, config_dir, device, profile=False):
     cfg = load_config(config_name, overrides, config_dir)
     if not cfg.get("resume_from_checkpoint"):
         stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
@@ -68,7 +90,10 @@ def _run_one(config_name, overrides, config_dir, device):
     ranks = f" rank={rank()}/{world_size()} mesh={task.mesh}" if is_initialized() else ""
     print(f"[siss_tpu_torch] task={task_cls.__name__} device={task.device}{ranks} "
           f"output_dir={cfg.output_dir}")
-    task.run()
+    if profile:
+        _run_profiled(task, str(cfg.output_dir))
+    else:
+        task.run()
     return task
 
 
@@ -88,6 +113,9 @@ def main(argv=None):
                         help="torch.distributed backend under torch.distributed.run with "
                              "several ranks (default nccl on cuda, gloo on cpu; ranks sharing "
                              "one card need gloo)")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler Chrome trace of the run under "
+                             "output_dir/profile")
     args = parser.parse_intermixed_args(argv)  # options may follow the overrides
     started = not is_initialized()
     device = maybe_initialize_distributed(args.device, args.dist_backend)
@@ -99,7 +127,7 @@ def main(argv=None):
         for i, ovs in enumerate(runs):
             if args.multirun:
                 print(f"[siss_tpu_torch] multirun job {i}: {ovs}")
-            tasks.append(_run_one(args.config_name, ovs, args.config_dir, device))
+            tasks.append(_run_one(args.config_name, ovs, args.config_dir, device, args.profile))
     finally:
         if started:
             destroy_distributed()

@@ -54,6 +54,12 @@ class ResnetBlock2D(nn.Module):
     """GroupNorm → SiLU → Conv, time-emb add, GroupNorm → SiLU → Conv, +skip.
     A channel change goes through a 1×1 ``conv_shortcut``.
 
+    ``dropout`` > 0 puts inverted dropout between ``norm2``'s SiLU and
+    ``conv2``, as the flax block does, and only with ``deterministic=False``
+    (never by ``module.training``: no caller of the JAX package passes
+    False, so its train step drops nothing). The keep mask is ``mask`` when
+    given, else drawn from ``generator``.
+
     Under a ``tensor`` axis (``set_tensor_split``) ``conv1``,
     ``time_emb_proj`` and ``norm2`` hold this rank's block of the output
     channels (and of the groups), ``conv2`` its block of the input channels:
@@ -63,9 +69,11 @@ class ResnetBlock2D(nn.Module):
     tensor_split = None
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
-                 groups: int = 32, eps: float = 1e-6, output_scale_factor: float = 1.0):
+                 groups: int = 32, eps: float = 1e-6, output_scale_factor: float = 1.0,
+                 dropout: float = 0.0):
         super().__init__()
         self.output_scale_factor = output_scale_factor
+        self.dropout = dropout
         self.groups, self.out_channels = groups, out_channels
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
@@ -84,14 +92,31 @@ class ResnetBlock2D(nn.Module):
         self.tensor_split = split
         return ()
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         split = self.tensor_split
         h = self.conv1(copy(F.silu(self.norm1(x)), split))
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(copy(F.silu(temb), split))[:, :, None, None]
-        h = row_conv(F.silu(self.norm2(h)), self.conv2, split)
+        h = F.silu(self.norm2(h))
+        if self.dropout > 0.0 and not deterministic:
+            h = inverted_dropout(h, self.dropout, generator, mask)
+        h = row_conv(h, self.conv2, split)
         residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return (h + residual) / self.output_scale_factor
+
+
+def inverted_dropout(h: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate
+    (``mask`` True, or a draw from ``generator``) and scale it by
+    1 / (1 − rate); zero the rest."""
+    if rate >= 1.0:
+        return torch.zeros_like(h)
+    if mask is None:
+        mask = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - rate
+    return torch.where(mask, h / (1.0 - rate), torch.zeros_like(h))
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -97,11 +97,9 @@ class UNet2D(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
-        if cfg.dropout != 0.0:
-            raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP Queue 1 item 6d)")
         ch0 = cfg.block_out_channels[0]
         temb = ch0 * 4
-        g, eps = cfg.norm_num_groups, cfg.norm_eps
+        g, eps, p = cfg.norm_num_groups, cfg.norm_eps, cfg.dropout
         n = len(cfg.block_out_channels)
 
         self.time_embedding = TimestepEmbedding(ch0, temb)
@@ -114,7 +112,7 @@ class UNet2D(nn.Module):
             out_ch = cfg.block_out_channels[i]
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block):
-                resnets.append(ResnetBlock2D(cur, out_ch, temb, g, eps))
+                resnets.append(ResnetBlock2D(cur, out_ch, temb, g, eps, dropout=p))
                 if block_type == "AttnDownBlock2D":
                     attns.append(SpatialAttention(out_ch, _num_heads(out_ch, cfg.attention_head_dim), g, eps))
                 cur = out_ch
@@ -129,8 +127,8 @@ class UNet2D(nn.Module):
         msf = cfg.mid_block_scale_factor
         mid_attns = ([SpatialAttention(mid, _num_heads(mid, cfg.attention_head_dim), g, eps, msf)]
                      if cfg.add_mid_attention else [])
-        self.mid_block = _Block([ResnetBlock2D(mid, mid, temb, g, eps, msf),
-                                 ResnetBlock2D(mid, mid, temb, g, eps, msf)], mid_attns)
+        self.mid_block = _Block([ResnetBlock2D(mid, mid, temb, g, eps, msf, p),
+                                 ResnetBlock2D(mid, mid, temb, g, eps, msf, p)], mid_attns)
 
         reversed_channels = tuple(reversed(cfg.block_out_channels))
         self.up_blocks = nn.ModuleList()
@@ -138,7 +136,8 @@ class UNet2D(nn.Module):
             out_ch = reversed_channels[i]
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block + 1):
-                resnets.append(ResnetBlock2D(cur + skip_channels.pop(), out_ch, temb, g, eps))
+                resnets.append(ResnetBlock2D(cur + skip_channels.pop(), out_ch, temb, g, eps,
+                                             dropout=p))
                 if block_type == "AttnUpBlock2D":
                     attns.append(SpatialAttention(out_ch, _num_heads(out_ch, cfg.attention_head_dim), g, eps))
                 cur = out_ch
@@ -148,8 +147,13 @@ class UNet2D(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch0, eps=eps)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """ε of ``sample`` at ``timesteps``. ``deterministic=False`` turns on
+        the resnets' dropout (``config.dropout`` > 0), its masks drawn from
+        ``generator``; the default, the JAX module's, drops nothing."""
         cfg = self.config
+        kw = dict(deterministic=deterministic, generator=generator)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
         with torch.autocast(sample.device.type, dtype=self.dtype,
@@ -162,7 +166,7 @@ class UNet2D(nn.Module):
             skips = [h]
             for block in self.down_blocks:
                 for j, resnet in enumerate(block.resnets):
-                    h = resnet(h, emb)
+                    h = resnet(h, emb, **kw)
                     if len(block.attentions):
                         h = block.attentions[j](h)
                     skips.append(h)
@@ -170,14 +174,14 @@ class UNet2D(nn.Module):
                     h = block.downsamplers[0](h)
                     skips.append(h)
 
-            h = self.mid_block.resnets[0](h, emb)
+            h = self.mid_block.resnets[0](h, emb, **kw)
             if len(self.mid_block.attentions):
                 h = self.mid_block.attentions[0](h)
-            h = self.mid_block.resnets[1](h, emb)
+            h = self.mid_block.resnets[1](h, emb, **kw)
 
             for block in self.up_blocks:
                 for j, resnet in enumerate(block.resnets):
-                    h = resnet(torch.cat([h, skips.pop()], dim=1), emb)
+                    h = resnet(torch.cat([h, skips.pop()], dim=1), emb, **kw)
                     if len(block.attentions):
                         h = block.attentions[j](h)
                 if hasattr(block, "upsamplers"):

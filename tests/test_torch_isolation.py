@@ -46,7 +46,9 @@ def test_imports_no_jax():
             "siss_tpu_torch.ops.batched", "siss_tpu_torch.parallel",
             "siss_tpu_torch.parallel.distributed", "siss_tpu_torch.parallel.mesh",
             "siss_tpu_torch.parallel.multihost", "siss_tpu_torch.parallel.fsdp",
-            "siss_tpu_torch.parallel.tensor"} <= set(mods)
+            "siss_tpu_torch.parallel.tensor", "siss_tpu_torch.serve",
+            "siss_tpu_torch.data.shapes", "siss_tpu_torch.utils.export",
+            "siss_tpu_torch.utils.hf_convert"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -58,7 +60,7 @@ def test_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond", "vae",
                                    "clip_text", "clip_vision", "kmeans", "clip_iqa",
-                                   "distributed"])
+                                   "distributed", "serve"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -95,6 +97,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
                 maybe_initialize_distributed()
             finally:
                 assert not is_initialized()
+        elif entry == "serve":
+            from siss_tpu_torch.serve import SamplerService
+
+            SamplerService("/nonexistent/checkpoint", arch="mnist_tshirt")
         elif entry == "clip_iqa":
             from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
 
