@@ -233,10 +233,43 @@ prints no result):
    (j) (h) again on four ranks, ``data=1 × fsdp=2 × tensor=2``, against
    the same one-process steps: the same checks and launches, 963,165,456
    parameter bytes a rank, the flash kernels at (1, 4, 4096, 40) and (1,
-   4, 1024, 80). (i) and (j) print their seconds alone. NCCL across
-   several cards is not run: the script needs one card.
-   cuDNN is set deterministic for the phase. Each phase's seconds are
-   printed after it.
+   4, 1024, 80). (g) runs beside (i) and (h) beside (j), six ranks on the
+   one card at most, so the ranks' step seconds include the other set's
+   load. Each part prints its seconds. NCCL across several cards is not
+   run: the script needs one card.
+   cuDNN is set deterministic for the phase.
+10. The examples and the SD memorization demo through their ``main``s, on
+   the card: (a) ``examples.celeb_sampler`` on 7b's bundle at the full
+   celebahq_256 width, 4 samples of 50 DDPM steps (a 2 × 2 grid of 256²
+   with 2-pixel padding, finite); (b) ``examples.likelihood_eval --arch
+   mnist_tshirt`` on phase 6's pretrain with two t-shirts of the real npz
+   as PNGs (finite bits/dim, nfe > 0); (c) ``examples.membership_curve``
+   on the same at its defaults (20 timesteps × 2 finite losses; the plot
+   where matplotlib is installed, else the computing function with a line
+   that says the plot was not drawn and why); (d) an sd_v1 directory (8b's
+   UNet bundle item linked, random VAE and CLIP text state dicts in bf16,
+   8b's synthetic tokenizer), then
+   ``examples.inference_time_mitigation --iters 2`` (embeddings [1, 77,
+   768], finite token gradients) and ``examples.sd_inference`` at 512²,
+   2 samples of 15 DDIM steps, from ``--prompt`` and from the augmented
+   ``--prompt-embeds`` (finite images and noise norms); the directory is
+   deleted after; (e) ``examples.sscd_score`` with a scripted
+   stand-in for SSCD on two images against a target (one similarity each,
+   in [−1, 1]); (f) first, before phase 6, the demo's two pretraining
+   loops as ``fit`` runs them on the card (a CUDA graph after three eager
+   steps) against the same loops run eagerly from the same weights and
+   draws, 8 steps each: losses and parameters equal bit for bit; then
+   ``sd_memorization_demo`` at its defaults, in a process of its own
+   started before phase 6 and read after (a)–(e) (it needs nothing of
+   the script's phases; it and phases 6–7b are host-bound; its launches
+   are counted in that process): memorized
+   before (``mem_fraction`` ≥ 0.9), forgotten after 100 SISS steps
+   (``mem_fraction`` ≤ 0.125), the keep-prompt control at 0.0 before and
+   after, 2 reduce and 4 SISS backward launches a step and no flash
+   launch (the tiny UNet runs einsum attention). Every part prints its
+   seconds, peak memory and launches; (a)–(e) launch no kernel.
+   Each phase's seconds are printed after it, and the script's bytes
+   written (``/proc/self/io``) at the end.
 
 For each path the kernels' launch counts are set to 0 just before it and
 read just after. The line before the last is the kernels' JSON record: each
@@ -1799,7 +1832,7 @@ def write_sd_metric_files(torch, root: Path) -> None:
     """Synthetic stand-ins for the SD metrics' artifacts under ``root``:
     k-means centers (the memorised image and mid-grey) at 512², a small
     TorchScript embedder for SSCD, and ``clip/``: a random full-width
-    ViT-L/14 vision state dict under transformers' names and random
+    ViT-L/14 vision state dict (bf16) under transformers' names and random
     anchors."""
     import numpy as np
     from PIL import Image
@@ -1809,16 +1842,33 @@ def write_sd_metric_files(torch, root: Path) -> None:
     root.mkdir(parents=True)
     mem = np.asarray(Image.open(SD_WORK / "images" / "img_0.png"), np.float32).reshape(-1)
     np.savez(root / "km.npz", centers=np.stack([mem, np.full_like(mem, 127.5)]))
-    torch.manual_seed(0)
-    embedder = torch.nn.Sequential(torch.nn.Conv2d(3, 64, 7, stride=4), torch.nn.ReLU(),
-                                   torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
-                                   torch.nn.Linear(64, 512)).eval()
-    torch.jit.save(torch.jit.script(embedder), str(root / "sscd.pt"))
+    write_sscd_standin(torch, root / "sscd.pt")
     (root / "clip" / "vision").mkdir(parents=True)
     vision = build_clip_vision(CLIPVisionConfig.vit_l14(), seed=0, device="cpu")
-    torch.save(vision.state_dict(), root / "clip" / "vision" / "pytorch_model.bin")
+    # bf16 halves the call's disk writes (the tower loads them in fp32)
+    torch.save({k: v.to(torch.bfloat16) for k, v in vision.state_dict().items()},
+               root / "clip" / "vision" / "pytorch_model.bin")
     rng = np.random.default_rng(0)
     np.savez(root / "clip" / "iqa_anchors.npz", good=rng.normal(size=768), bad=rng.normal(size=768))
+
+
+def write_sscd_standin(torch, path: Path) -> None:
+    """A small TorchScript embedder standing in for SSCD: NCHW images to
+    L2-normalised 512-dimensional embeddings, as the real model gives."""
+    torch.manual_seed(0)
+    trunk = torch.nn.Sequential(torch.nn.Conv2d(3, 64, 7, stride=4), torch.nn.ReLU(),
+                                torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+                                torch.nn.Linear(64, 512)).eval()
+
+    class Normalized(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.trunk = trunk
+
+        def forward(self, x):
+            return torch.nn.functional.normalize(self.trunk(x), dim=-1)
+
+    torch.jit.save(torch.jit.trace(Normalized().eval(), torch.zeros(1, 3, 64, 64)), str(path))
 
 
 def vit_times(torch, card):
@@ -2096,8 +2146,8 @@ def delete_tshirt(cli, base, out, *extra):
 def phase_tshirt(torch, card):
     """The t-shirt task through the port's command line on the card: the
     full-width mnist_tshirt pretrain, then 30 SISS unlearning steps from its
-    latest bundle with the shipped metrics block (the likelihood at steps 0
-    and 30), then the selectivity probe. Returns the pretrain bundle's
+    latest bundle with the shipped metrics block (the likelihood at step 0
+    only), then the selectivity probe. Returns the pretrain bundle's
     directory and SISS's (forget, keep) probe ratios."""
     import shutil
 
@@ -2320,7 +2370,7 @@ HELD = ("params", "optimizer", "ema", "accumulators")
 # and with fsdp 2 on four ((i), (j)), the celeb step's global microbatch ×
 # accumulation cut to TP_MB × TP_ACCUM and the sd step's to TP_SD_MB ×
 # TP_SD_ACCUM: every activation all-reduce is staged through the host by
-# gloo.
+# gloo. (g) runs beside (i), and (h) beside (j), on the one card.
 TP_ACCUM, TP_MB, TP_STEPS = 2, 2, 2
 TP_SD_ACCUM, TP_SD_MB = 1, 2
 # The sd step's optimizer there: the SD fast path's Adafactor
@@ -2535,9 +2585,9 @@ def dp_rank(rank, port, queue, fp32_path, fsdp, steps, tensor=1, kind="celeb", r
         queue.put({"rank": rank, "error": traceback.format_exc()})
 
 
-def spawn_ranks(fp32_path, fsdp, steps, tensor=1, kind="celeb", ranks=DP_RANKS):
-    """Run ``dp_rank`` for ``steps`` steps on ``ranks`` processes sharing the
-    card; their reports, rank 0's first. Every process is joined or killed."""
+def start_ranks(fp32_path, fsdp, steps, tensor=1, kind="celeb", ranks=DP_RANKS):
+    """Start ``dp_rank`` for ``steps`` steps on ``ranks`` processes sharing the
+    card, on a port of their own; returns what ``collect_ranks`` takes."""
     import multiprocessing as mp
     import socket
 
@@ -2551,29 +2601,50 @@ def spawn_ranks(fp32_path, fsdp, steps, tensor=1, kind="celeb", ranks=DP_RANKS):
              for r in range(ranks)]
     for proc in procs:
         proc.start()
+    return procs, queue, f"{kind} ranks (fsdp {fsdp}, tensor {tensor})"
+
+
+def collect_ranks(*started):
+    """The reports of each set of ranks that ``start_ranks`` started, rank
+    0's first. Every process of every set is joined or killed, whatever
+    fails."""
     try:
-        reports = sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
+        out = [sorted((queue.get(timeout=900) for _ in procs), key=lambda r: r["rank"])
+               for procs, queue, _ in started]
     finally:
-        for proc in procs:
-            proc.join(timeout=60)
-            if proc.is_alive():
-                proc.kill()
-    for r in reports:
-        if "error" in r:
-            raise AssertionError(f"{kind} ranks (fsdp {fsdp}, tensor {tensor}) rank {r['rank']} "
-                                 f"failed:\n{r['error']}")
-    return reports
+        for procs, _, _ in started:
+            for proc in procs:
+                proc.join(timeout=60)
+                if proc.is_alive():
+                    proc.kill()
+    for (_, _, label), reports in zip(started, out):
+        for r in reports:
+            if "error" in r:
+                raise AssertionError(f"{label} rank {r['rank']} failed:\n{r['error']}")
+    return out
+
+
+def spawn_ranks(fp32_path, fsdp, steps, tensor=1, kind="celeb", ranks=DP_RANKS):
+    """``dp_rank``'s reports from ``ranks`` processes sharing the card, rank
+    0's first."""
+    return collect_ranks(start_ranks(fp32_path, fsdp, steps, tensor, kind, ranks))[0]
 
 
 def step_errors(run, fp32):
     """Δθ's largest and RMS error and the norms' largest and RMS relative
     error of ``run`` (θ after each step kept, the norms of each step)
     against the fp32 run ``fp32``."""
-    dtheta = [t.double() - f.double() for t, f in zip(run["theta"], fp32["theta"])]
-    n = sum(d.numel() for d in dtheta)
+    # in float64 a slice at a time: sd_v1's θ is 859,520,964 elements, and
+    # ranks of two meshes compute this at once
+    n, dmax, sq, chunk = 0, 0.0, 0.0, 1 << 24
+    for t, f in zip(run["theta"], fp32["theta"]):
+        t, f = t.reshape(-1), f.reshape(-1)
+        for i in range(0, t.numel(), chunk):
+            d = t[i:i + chunk].double() - f[i:i + chunk].double()
+            dmax, sq = max(dmax, float(d.abs().max())), sq + float((d ** 2).sum())
+        n += t.numel()
     rel = [relative(a[k], b[k]) for a, b in zip(run["norms"], fp32["norms"]) for k in DP_NORMS]
-    return {"dtheta_max": max(float(d.abs().max()) for d in dtheta),
-            "dtheta_rms": math.sqrt(sum(float((d ** 2).sum()) for d in dtheta) / n),
+    return {"dtheta_max": dmax, "dtheta_rms": math.sqrt(sq / n),
             "norm_rel_max": max(rel), "norm_rel_rms": math.sqrt(sum(x * x for x in rel) / len(rel))}
 
 
@@ -2732,6 +2803,7 @@ def phase_data_parallel(torch, card, base):
     shutil.rmtree(DP_WORK, ignore_errors=True)
     DP_WORK.mkdir(parents=True)
     torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
 
     # (a) one process, no group: bf16 autocast and fp32 (TF32 off).
     ref = {name: dp_steps(torch, dtype, "cuda") for name, dtype in
@@ -2759,6 +2831,7 @@ def phase_data_parallel(torch, card, base):
     del nccl
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = lap("9(a)–(b)", t0)
 
     # (c) two ranks sharing the card over gloo, on the data axis.
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -2778,7 +2851,10 @@ def phase_data_parallel(torch, card, base):
               f"memory {r['peak_gib']:.2f} GiB (one process {ref['bf16']['peak_gib']:.2f}), "
               f"launches {r['launches']}")
 
-    # (e) data=1 x fsdp=2 on two ranks sharing the card over gloo.
+    t0 = lap("9(c)", t0)
+
+    # (e) data=1 x fsdp=2 on two ranks sharing the card over gloo. (It does
+    # not run beside (c): four ranks of ~18.3 GiB each do not fit the card.)
     fsdp_ranks = spawn_ranks(fp32_path, 2, DP_STEPS)
     check_ranks(torch, "e", fsdp_ranks, ref, DP_STEPS)
     held, total = rank_elements(torch, fsdp=2)
@@ -2808,6 +2884,7 @@ def phase_data_parallel(torch, card, base):
               f"{r['launches']}")
     del ref
     gc.collect()
+    t0 = lap("9(e)", t0)
 
     # (d) the command line on two ranks sharing the card, data axis, and (f)
     # the same with mesh.fsdp=2, side by side.
@@ -2833,8 +2910,16 @@ def phase_data_parallel(torch, card, base):
           f"cuda:0, {f_seconds:.1f} s with start-up; one run directory {f_run.name}, one log "
           f"with (d)'s {len(keys[0])} keys, {f_cps}, loaded whole in one process ({n} params); "
           f"img/s {[round(r['images_per_sec'], 2) for r in f_rows if 'loss_x/mean' in r]}")
+    lap("9(d) and (f)", t0)
     tensor_parallel(torch, card)
     torch.backends.cudnn.deterministic = False
+
+
+def lap(label, t0):
+    """Print ``label``'s seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"phase {label}: {now - t0:.1f} s")
+    return now
 
 
 def check_held(torch, card, label, ranks, whole, fsdp, tensor, param_bytes):
@@ -2876,28 +2961,29 @@ def tensor_parallel(torch, card):
     """9(g): the celeb step at full width on ``data=1 × tensor=2``, cut to
     TP_MB × TP_ACCUM, against one process's bf16 and fp32 steps on the same
     cut; 9(i): the same on ``data=1 × fsdp=2 × tensor=2`` against the same
-    steps; 9(h): the sd_v1 step with flash and Adafactor at microbatch
-    TP_SD_MB × TP_SD_ACCUM on ``data=1 × tensor=2``, likewise against one
-    process's (whose norms that are exactly 0 are printed with the sets of
-    the step's samples), 9(j) the same on ``data=1 × fsdp=2 × tensor=2``,
-    and the bf16 flash kernels at the local heads' shapes against their
-    plain versions."""
+    steps, beside (g); 9(h): the sd_v1 step with flash and Adafactor at
+    microbatch TP_SD_MB × TP_SD_ACCUM on ``data=1 × tensor=2``, likewise
+    against one process's (whose norms that are exactly 0 are printed with
+    the sets of the step's samples), 9(j) the same on ``data=1 × fsdp=2 ×
+    tensor=2``, beside (h); and the bf16 flash kernels at the local heads'
+    shapes against their plain versions."""
     import gc
 
+    t0 = time.perf_counter()
     ref = {name: dp_steps(torch, dtype, "cuda", steps=TP_STEPS, accum=TP_ACCUM, mb=TP_MB)
            for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
     per_step = {"siss_reduce": TP_ACCUM, "siss_bwd": 2 * TP_ACCUM}
     fp32_path = save_fp32_ref(torch, ref, "celeb_tp")
-    ranks = spawn_ranks(fp32_path, 1, TP_STEPS, tensor=2)
-    check_ranks(torch, "g", ranks, ref, TP_STEPS, per_step)
-    check_held(torch, card, "g", ranks, ref["bf16"]["held"], 1, 2, TP_PARAM_BYTES["celeb"])
-    print_ranks(card, "g", ranks, ref["bf16"])
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(fp32_path, 2, TP_STEPS, tensor=2, ranks=4)
-    check_ranks(torch, "i", ranks, ref, TP_STEPS, per_step)
-    check_held(torch, card, "i", ranks, ref["bf16"]["held"], 2, 2, TP_FSDP_PARAM_BYTES["celeb"])
-    print_ranks(card, "i", ranks, ref["bf16"])
-    print(f"phase 9(i): {time.perf_counter() - t0:.1f} s")
+    t0 = lap("9(g) and (i)'s one-process steps", t0)
+    for label, ranks in zip("gi", collect_ranks(
+            start_ranks(fp32_path, 1, TP_STEPS, tensor=2),
+            start_ranks(fp32_path, 2, TP_STEPS, tensor=2, ranks=4))):
+        fsdp = 1 if label == "g" else 2
+        check_ranks(torch, label, ranks, ref, TP_STEPS, per_step)
+        check_held(torch, card, label, ranks, ref["bf16"]["held"], fsdp, 2,
+                   (TP_PARAM_BYTES if label == "g" else TP_FSDP_PARAM_BYTES)["celeb"])
+        print_ranks(card, label, ranks, ref["bf16"])
+    t0 = lap("9(g) beside (i)", t0)
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -2916,11 +3002,12 @@ def tensor_parallel(torch, card):
           "(|d| ~ 60-95 at t = 999 over 16,384 dimensions), so its gradient's squared norm "
           "underflows fp32 to exactly 0, in JAX's step too (tests/test_torch_sd_zero_norm.py)")
     fp32_path = save_fp32_ref(torch, ref, "sd")
+    t0 = lap("9(h) and (j)'s one-process steps", t0)
     want = {k: TP_STEPS * n for k, n in TP_SD_PER_STEP.items()}
-    for label, fsdp, n_ranks, param_bytes in (("h", 1, 2, TP_PARAM_BYTES["sd"]),
-                                              ("j", 2, 4, TP_FSDP_PARAM_BYTES["sd"])):
-        t0 = time.perf_counter()
-        ranks = spawn_ranks(fp32_path, fsdp, TP_STEPS, tensor=2, kind="sd", ranks=n_ranks)
+    for label, ranks in zip("hj", collect_ranks(
+            start_ranks(fp32_path, 1, TP_STEPS, tensor=2, kind="sd"),
+            start_ranks(fp32_path, 2, TP_STEPS, tensor=2, kind="sd", ranks=4))):
+        param_bytes = (TP_PARAM_BYTES if label == "h" else TP_FSDP_PARAM_BYTES)["sd"]
         check_ranks(torch, label, ranks, ref, TP_STEPS, TP_SD_PER_STEP)
         for r in ranks:
             if r["launches"] != want:
@@ -2936,7 +3023,320 @@ def tensor_parallel(torch, card):
                   f"(parameters whole {SD_PARAM_BYTES}), norms {r['norms'][-1]}")
         for i, shape in enumerate(TP_FLASH_SHAPES[label]):
             check_flash_case(torch, shape, torch.bfloat16, seed=100 + i)
-        print(f"phase 9({label}): {time.perf_counter() - t0:.1f} s")
+    lap("9(h) beside (j)", t0)
+
+
+# Phase 10: the examples and the SD memorization demo on the card.
+EX_WORK = ROOT / "build" / "chip_smoke_examples"
+EX_CELEB = ("--n", "4", "--steps", "50")
+EX_SD = ("--n", "2", "--steps", str(SD_INFERENCE_STEPS))
+EX_MITIGATION_ITERS = 2
+EX_PROMPT = "a photo of sylvester stallone"
+# The sd_v1 directory's parameters (UNet, VAE, CLIP text): 8b's UNet
+# linked, the towers written in bf16 to keep the call's disk writes down
+# (the modules load them in fp32).
+SD_V1_PARAMS = {"unet": 859_520_964, "vae": 83_653_863, "text_encoder": 123_060_480}
+# The demo's checks: memorized before, forgotten after (at most one of its
+# eight samples), the keep-prompt control never classified memorized.
+DEMO_MEMORIZED, DEMO_FORGOTTEN = 0.9, 0.125
+
+
+def example_part(torch, card, label, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the launch counts and the peak memory
+    set to 0 just before; prints its seconds, peak memory and launches and
+    returns (its result, the launches)."""
+    from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    print(f"examples ({label}) ({card}): {seconds:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {counts}")
+    return out, counts, seconds
+
+
+def no_launches(label, counts):
+    if any(counts.values()) or not {"siss_reduce", "siss_bwd", "flash_fwd"} <= set(counts):
+        raise AssertionError(f"examples ({label}): launch counts {counts}, expected every "
+                             "kernel 0")
+
+
+def write_sd_v1_dir(torch, root: Path) -> None:
+    """An SD-1.x directory of random weights: 8b's UNet (the fp32 ``unet``
+    item of its cached run's final bundle, linked, not copied), random VAE
+    and CLIP text state dicts in bf16 under diffusers and transformers
+    names, and 8b's synthetic ``tokenizer/``."""
+    import shutil
+
+    from siss_tpu_torch.models import (AutoencoderKLConfig, CLIPTextConfig, build_clip_text,
+                                       build_vae)
+
+    found = sorted((SD_WORK / "out_cached").glob(f"*/checkpoint-{SD_STEPS}/unet/item.pt"))
+    if len(found) != 1:
+        raise AssertionError(f"8b's cached run left {len(found)} final unet items: {found}")
+    unet = found[0]
+    shutil.copytree(SD_WORK / "pretrained" / "tokenizer", root / "tokenizer")
+    (root / "unet").mkdir(parents=True)
+    (root / "unet" / "diffusion_pytorch_model.bin").symlink_to(unet)
+    n = sum(v.numel() for v in torch.load(unet, mmap=True, weights_only=True).values())
+    if n != SD_V1_PARAMS["unet"]:
+        raise AssertionError(f"8b's sd_v1 unet: {n} parameters, expected {SD_V1_PARAMS['unet']}")
+    for sub, build, cfg, fname in (
+            ("vae", build_vae, AutoencoderKLConfig.sd_v1(), "diffusion_pytorch_model.bin"),
+            ("text_encoder", build_clip_text, CLIPTextConfig.sd_v1(), "pytorch_model.bin")):
+        sd = build(cfg, seed=0, device="cuda").state_dict()
+        n = sum(v.numel() for v in sd.values())
+        if n != SD_V1_PARAMS[sub]:
+            raise AssertionError(f"sd_v1 {sub}: {n} parameters, expected {SD_V1_PARAMS[sub]}")
+        (root / sub).mkdir(parents=True)
+        torch.save({k: v.to("cpu", torch.bfloat16) for k, v in sd.items()}, root / sub / fname)
+        del sd
+    torch.cuda.empty_cache()
+
+
+def phase_examples(torch, card, bundle: Path, base: Path):
+    """10(a)–(e): the six examples through their ``main``s on the card."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from siss_tpu_torch.examples import (celeb_sampler, inference_time_mitigation,
+                                         likelihood_eval, membership_curve, sd_inference,
+                                         sscd_score)
+
+    # (a) celeb_sampler on 7b's bundle
+    out, counts, seconds = example_part(
+        torch, card, "a", celeb_sampler.main,
+        ["--checkpoint", str(bundle), *EX_CELEB, "--out", str(EX_WORK / "celeb.png")])
+    no_launches("a", counts)
+    side = 2 * 256 + 3 * 2
+    png = np.asarray(Image.open(EX_WORK / "celeb.png"))
+    if png.shape != (side, side, 3) or not np.array_equal(png, out["grid"]):
+        raise AssertionError(f"celeb_sampler: PNG of shape {png.shape}, expected ({side}, {side}, "
+                             "3), the grid it returned")
+    if out["images"].shape != (4, 256, 256, 3) or not np.isfinite(out["images"]).all():
+        raise AssertionError("celeb_sampler: samples not 4 finite 256² images")
+    print(f"celeb_sampler ({card}): 4 samples of 50 DDPM steps at celebahq_256 in "
+          f"{seconds:.2f} s = {4 / seconds:.2f} img/s (model load included)")
+
+    # (b) likelihood_eval on two t-shirts of the real npz
+    with np.load(TSHIRT_DATA) as z:
+        tshirts = z["images"][z["labels"] == 10][:2, ..., 0]
+    paths = []
+    for i, img in enumerate(tshirts):
+        paths.append(str(EX_WORK / f"tshirt_{i}.png"))
+        Image.fromarray(img).save(paths[-1])
+    out, counts, seconds = example_part(
+        torch, card, "b", likelihood_eval.main,
+        ["--checkpoint", f"{base}/latest", "--images", *paths, "--arch", "mnist_tshirt"])
+    no_launches("b", counts)
+    if not (np.isfinite(out["bpd"]).all() and out["bpd"].shape == (2,) and out["nfe"] > 0):
+        raise AssertionError(f"likelihood_eval: bits/dim {out['bpd']}, nfe {out['nfe']}")
+    print(f"likelihood_eval ({card}): RK45 on the pretrain's unet, bits/dim "
+          f"{[round(float(b), 4) for b in out['bpd']]}, nfe {out['nfe']}, {seconds:.2f} s")
+
+    # (c) membership_curve on the same, at its defaults
+    argv = ["--checkpoint", f"{base}/latest", "--npz", str(TSHIRT_DATA), "--out",
+            str(EX_WORK / "membership.png")]
+    if importlib.util.find_spec("matplotlib") is not None:
+        out, counts, seconds = example_part(torch, card, "c", membership_curve.main, argv)
+        if not (EX_WORK / "membership.png").stat().st_size:
+            raise AssertionError("membership_curve: empty plot")
+        timesteps, losses = out["timesteps"], out["losses"]
+    else:
+        (timesteps, losses), counts, seconds = example_part(
+            torch, card, "c", membership_curve.membership_losses,
+            membership_curve.parse_args(argv))
+        print("membership_curve: the plot was not drawn: matplotlib is not installed on this "
+              "machine; membership_losses computed the curve")
+    no_launches("c", counts)
+    if (timesteps != list(range(0, 1000, 50)) or len(losses) != 20
+            or not all(len(pair) == 2 and all(math.isfinite(v) for v in pair) for pair in losses)):
+        raise AssertionError(f"membership_curve: timesteps {timesteps}, losses {losses}")
+    print(f"membership_curve ({card}): 32 images x 16 noises a set, (keep, forget) by timestep "
+          + json.dumps({t: [round(a, 4), round(b, 4)] for t, (a, b) in zip(timesteps, losses)}))
+
+    # (d) the SD examples at full sd_v1 width
+    model = EX_WORK / "sd_v1"
+    _, _, seconds = example_part(torch, card, "d: sd_v1 directory", write_sd_v1_dir, torch, model)
+    size = sum(f.stat().st_size for f in model.rglob("*") if f.is_file() and not f.is_symlink())
+    print(f"sd_v1 directory ({card}): the towers' {size / 1e9:.3f} GB (bf16) written and 8b's "
+          f"unet linked in {seconds:.2f} s")
+    aug = EX_WORK / "aug_prompt.npz"
+    out, counts, seconds = example_part(
+        torch, card, "d: inference_time_mitigation", inference_time_mitigation.main,
+        ["--model", str(model), "--prompt", EX_PROMPT, "--iters", str(EX_MITIGATION_ITERS),
+         "--out", str(aug)])
+    no_launches("d", counts)
+    grads = out["token_grads"]
+    if out["embeds"].shape != (1, SD_PROMPT_TOKENS, 768) or grads.shape != (SD_PROMPT_TOKENS,) \
+            or not np.isfinite(grads).all() or not np.isfinite(out["embeds"]).all():
+        raise AssertionError(f"inference_time_mitigation: embeddings {out['embeds'].shape}, "
+                             f"token gradients {grads.shape}, finite "
+                             f"{np.isfinite(grads).all()}")
+    print(f"inference_time_mitigation ({card}): {EX_MITIGATION_ITERS} iterations, token gradient "
+          f"norms max {grads.max():.4g}, mean {grads.mean():.4g}; augmented embeddings "
+          f"{out['embeds'].shape} moved by {np.abs(out['embeds']).max():.4g} at most")
+    for label, src in (("prompt", ["--prompt", EX_PROMPT]),
+                       ("prompt-embeds", ["--prompt-embeds", str(aug)])):
+        out, counts, seconds = example_part(
+            torch, card, f"d: sd_inference --{label}", sd_inference.main,
+            ["--model", str(model), *src, *EX_SD, "--out", str(EX_WORK / f"sd_{label}.png")])
+        no_launches("d", counts)
+        norms = out["text_norm"]
+        if out["images"].shape != (2, 512, 512, 3) or not np.isfinite(out["images"]).all() \
+                or norms.shape != (SD_INFERENCE_STEPS, 2) or not np.isfinite(norms).all() \
+                or not np.isfinite(out["uncond_norm"]).all():
+            raise AssertionError(f"sd_inference --{label}: images {out['images'].shape}, "
+                                 f"norms {norms.shape}, not all finite")
+        print(f"sd_inference --{label} ({card}): 2 samples of {SD_INFERENCE_STEPS} CFG DDIM "
+              f"steps at 512² in {seconds:.2f} s (model load included); text-cond noise norm by "
+              f"step {np.round(norms.mean(axis=1), 3).tolist()}")
+    shutil.rmtree(model)
+
+    # (e) sscd_score with the scripted stand-in
+    write_sscd_standin(torch, EX_WORK / "sscd.pt")
+    images = [str(SD_WORK / "images" / f"img_{i}.png") for i in (1, 2)]
+    out, counts, seconds = example_part(
+        torch, card, "e", sscd_score.main,
+        ["--model", str(EX_WORK / "sscd.pt"), "--target", str(SD_WORK / "images" / "img_0.png"),
+         "--images", *images])
+    no_launches("e", counts)
+    sims = out["sims"]
+    if sims.shape != (2,) or not (np.abs(sims) <= 1 + 1e-6).all():
+        raise AssertionError(f"sscd_score: similarities {sims}")
+    print(f"sscd_score ({card}): {[round(float(v), 6) for v in sims]}")
+
+
+# The demo's process: its main at the defaults, its launch counts set to 0
+# just before and read just after, its result as the last line.
+DEMO_RUNNER = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from siss_tpu_torch import sd_memorization_demo as demo
+from siss_tpu_torch.ops import launch_counts, reset_launch_counts
+reset_launch_counts()
+t0 = time.perf_counter()
+out = demo.main(sys.argv[2:])
+torch.cuda.synchronize()
+print(json.dumps({"result": out, "launches": dict(launch_counts),
+                  "seconds": time.perf_counter() - t0,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+"""
+
+
+# 10(f)'s check of the demo's CUDA-graphed ``fit``: each of its two loops
+# for FIT_STEPS steps (the eager warm-up and five replays).
+FIT_STEPS = 8
+
+
+def check_fit_graph(torch, card):
+    """The demo's two pretraining loops as ``fit`` runs them on the card (a
+    CUDA graph after the warm-up) and eagerly, from the same weights and
+    draws, FIT_STEPS steps each, under the demo's switches (TF32 off, cuDNN
+    deterministic): every step's loss and the parameters after the last
+    must be equal bit for bit."""
+    from siss_tpu_torch import sd_memorization_demo as demo
+    from siss_tpu_torch.diffusion import sd_noise_schedule
+    from siss_tpu_torch.models import build_unet_cond, build_vae
+
+    unet_cfg, vae_cfg, text_cfg = demo.demo_configs()
+    n, res = 9, 32   # the demo's 8 keep images and the memorized one, 32²
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_all = torch.rand((n, res, res, 3), generator=gen, device="cuda") * 2 - 1
+    e_all = torch.randn((n, text_cfg.max_position_embeddings, text_cfg.hidden_size),
+                        generator=gen, device="cuda") * 0.5
+    latent = (res // vae_cfg.scale_factor, res // vae_cfg.scale_factor, vae_cfg.latent_channels)
+    schedule = sd_noise_schedule(device="cuda")
+
+    def run(graphed):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        losses = {"vae": [], "unet": []}
+        vae = build_vae(vae_cfg, seed=0, device="cuda")
+        demo.fit(vae.parameters(), FIT_STEPS,
+                 lambda: torch.randn((n, *latent), generator=g, device="cuda"),
+                 lambda noise: demo.vae_loss(vae, x_all, noise),
+                 lambda i, loss: losses["vae"].append(loss.item()), graphed)
+        vae.requires_grad_(False).eval()
+        unet = build_unet_cond(unet_cfg, seed=1, device="cuda")
+        demo.fit(unet.parameters(), FIT_STEPS,
+                 lambda: demo.draw_unet_batch(g, n, 16, 0.33, latent,
+                                              schedule.num_train_timesteps),
+                 lambda draws: demo.unet_loss(unet, vae, schedule, x_all, e_all, draws),
+                 lambda i, loss: losses["unet"].append(loss.item()), graphed)
+        return losses, [p.detach().clone() for m in (vae, unet) for p in m.parameters()]
+
+    deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    try:
+        (g_loss, g_params), (e_loss, e_params) = run(True), run(False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    dloss = max(abs(a - b) for k in g_loss for a, b in zip(g_loss[k], e_loss[k]))
+    dparam = max(float((a - b).abs().max()) for a, b in zip(g_params, e_params))
+    print(f"demo fit ({card}): {FIT_STEPS} steps of each loop graphed after "
+          f"{demo.WARMUP_STEPS} eager ones, against eager: losses "
+          f"{json.dumps(g_loss)}; largest loss difference {dloss:.3g}, largest parameter "
+          f"difference {dparam:.3g}")
+    if g_loss != e_loss or not all(torch.equal(a, b) for a, b in zip(g_params, e_params)):
+        raise AssertionError(f"demo fit: the CUDA-graphed loops differ from the eager ones "
+                             f"(losses by {dloss:.3g}, parameters by {dparam:.3g})")
+
+
+def start_demo():
+    """10(f): ``sd_memorization_demo`` at its defaults in a process of its
+    own, from phase 6 on (it needs nothing of the script's phases, and
+    both it and phases 6–7b are host-bound; the card has room for both);
+    its output goes to a file. Returns the process and the file."""
+    import shutil
+
+    shutil.rmtree(EX_WORK, ignore_errors=True)
+    EX_WORK.mkdir(parents=True)
+    log = open(EX_WORK / "demo.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", DEMO_RUNNER, str(ROOT), "--out",
+                             str(EX_WORK / "demo")], stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def finish_demo(card, proc, log):
+    """Wait for the demo, print its output, and check that it memorized,
+    forgot and kept its control, with 2 reduce and 4 SISS backward
+    launches a step and none of the flash kernels."""
+    proc.wait(timeout=900)
+    log.close()
+    lines = (EX_WORK / "demo.log").read_text().splitlines()
+    results = [line for line in lines if line.startswith('{"result": ')]
+    print("\n".join(f"demo: {line}" for line in lines if line not in results))
+    if proc.returncode != 0 or len(results) != 1:
+        raise AssertionError(f"sd_memorization_demo exited {proc.returncode} with "
+                             f"{len(results)} result lines")
+    run = json.loads(results[0])
+    before, after, series = (run["result"][k] for k in ("before", "after", "series"))
+    counts, steps = run["launches"], 100   # the demo's --unlearn-steps
+    expected = {k: 0 for k in counts} | {"siss_reduce": 2 * steps, "siss_bwd": 4 * steps}
+    print(f"sd_memorization_demo ({card}): {run['seconds']:.2f} s from phase 6 on, peak memory "
+          f"{run['peak_gib']:.3f} GiB; before {json.dumps(before)}; after {json.dumps(after)}; "
+          f"deletion_fraction_0 by image {series}; launches {counts} "
+          f"({counts['siss_reduce'] / steps:g} reduce, {counts['siss_bwd'] / steps:g} SISS "
+          "backward a step)")
+    if counts != expected:
+        raise AssertionError(f"sd_memorization_demo: launch counts {counts}, expected {expected}")
+    if before["mem_fraction"] < DEMO_MEMORIZED:
+        raise AssertionError(f"sd_memorization_demo: mem_fraction {before['mem_fraction']} before "
+                             f"unlearning, below {DEMO_MEMORIZED}: not memorized")
+    if after["mem_fraction"] > DEMO_FORGOTTEN:
+        raise AssertionError(f"sd_memorization_demo: mem_fraction {after['mem_fraction']} after "
+                             f"{steps} steps, above {DEMO_FORGOTTEN}: not forgotten")
+    if before["keep_fraction"] != 0.0 or after["keep_fraction"] != 0.0:
+        raise AssertionError(f"sd_memorization_demo: keep_fraction {before['keep_fraction']} → "
+                             f"{after['keep_fraction']}, expected 0.0 before and after")
 
 
 def main() -> int:
@@ -2976,17 +3376,28 @@ def main() -> int:
     record = phase("3", phase_kernels, torch)
     record.update(phase("4", phase_flash_kernels, torch))
     fp32_counts = phase("5", phase_tiny_step_parity, torch)
-    base, siss_ratios = phase("6", phase_tshirt, torch, card)
-    phase("6b", phase_tshirt_objectives, torch, card, base, siss_ratios)
-    phase("6c", phase_classifier, torch, card, base)
-    celeb_counts = phase("7", phase_main_path, torch)
-    bundle = phase("7b", phase_celeb_task, torch, card)
-    phase("7c", phase_serve, torch, card, bundle)
-    sd_counts = phase("8", phase_sd_path, torch)
-    phase("8b", phase_sd_task, torch, card)
-    phase("8c(b)", phase_sd_knobs, torch, card)
-    phase("8c(a)", phase_sd_fast_path, torch, card)
-    phase("9", phase_data_parallel, torch, card, base)
+    phase("10(f): the demo's fit", check_fit_graph, torch, card)
+    demo, demo_log = start_demo()
+    try:
+        base, siss_ratios = phase("6", phase_tshirt, torch, card)
+        phase("6b", phase_tshirt_objectives, torch, card, base, siss_ratios)
+        phase("6c", phase_classifier, torch, card, base)
+        celeb_counts = phase("7", phase_main_path, torch)
+        bundle = phase("7b", phase_celeb_task, torch, card)
+        phase("7c", phase_serve, torch, card, bundle)
+        sd_counts = phase("8", phase_sd_path, torch)
+        phase("8b", phase_sd_task, torch, card)
+        phase("8c(b)", phase_sd_knobs, torch, card)
+        phase("8c(a)", phase_sd_fast_path, torch, card)
+        phase("9", phase_data_parallel, torch, card, base)
+        t10 = time.perf_counter()
+        phase("10(a)–(e)", phase_examples, torch, card, bundle, base)
+        finish_demo(card, demo, demo_log)
+    finally:
+        if demo.poll() is None:
+            demo.kill()
+            demo.wait()
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     # Launches: the SISS kernels' from the celeb path, the bf16 flash
     # kernels' from the SD path (the SISS kernels' SD counts are printed
@@ -3004,7 +3415,10 @@ def main() -> int:
                "flash_bwd_dq_fp32": ("siss_tpu_torch/ops/csrc/flash_bwd_dq_tf32x3.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
                     **record[name]) for name, (src, rep) in sources.items()]
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    written = io_written()
+    print(f"total {time.perf_counter() - t_start:.1f} s; written (/proc/self/io) wchar "
+          f"{written['wchar'] / 2**30:.3f} GiB, write_bytes {written['write_bytes'] / 2**30:.3f} "
+          "GiB")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

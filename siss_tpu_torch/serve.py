@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import io
 import json
-import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -37,18 +36,18 @@ from siss_tpu_torch.device import resolve_device
 from siss_tpu_torch.diffusion import NoiseSchedule
 from siss_tpu_torch.diffusion.sampling import sample_ddpm, sample_dpm_solver_2m
 from siss_tpu_torch.evaluate import Evaluator
-from siss_tpu_torch.models import UNet2D, UNet2DConfig
+from siss_tpu_torch.models import UNet2DConfig
 from siss_tpu_torch.train.step import unet_eps_apply
-from siss_tpu_torch.utils.checkpoint import ITEM_FILE
-from siss_tpu_torch.utils.hf_convert import convert_unet2d, load_torch_state_dict
+from siss_tpu_torch.utils.hf_convert import load_unet2d
 
 
 class SamplerService:
     """``checkpoint``: a port bundle (``checkpoint-<n>`` holding
-    ``<subfolder>/item.pt``), or a state-dict file or diffusers model
-    directory with diffusers ``UNet2DModel`` names (modern or pre-0.18),
-    read through ``convert_unet2d``. The UNet is ``UNet2DConfig.<arch>()``
-    computing in ``dtype``; the schedule the linear 1000-step one."""
+    ``<subfolder>/item.pt``, or ``<run dir>/latest``), or a state-dict file
+    or diffusers model directory with diffusers ``UNet2DModel`` names
+    (modern or pre-0.18), read through ``hf_convert.load_unet2d``. The UNet
+    is ``UNet2DConfig.<arch>()`` computing in ``dtype``; the schedule the
+    linear 1000-step one."""
 
     def __init__(self, checkpoint: str, arch: str = "celebahq_256", subfolder: str = "unet",
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
@@ -58,23 +57,7 @@ class SamplerService:
         self.arch = arch
         ucfg = getattr(UNet2DConfig, arch)()
         self.shape = (ucfg.sample_size, ucfg.sample_size, ucfg.in_channels)
-        with torch.device("meta"):
-            model = UNet2D(ucfg, dtype=dtype)
-        item = os.path.join(checkpoint, subfolder, ITEM_FILE)
-        if os.path.isfile(item):
-            sd = torch.load(item, map_location="cpu", weights_only=True)
-        elif os.path.exists(checkpoint):
-            sub = os.path.join(checkpoint, subfolder)
-            sd = convert_unet2d(load_torch_state_dict(sub if os.path.isdir(sub) else checkpoint),
-                                model)
-        else:
-            raise FileNotFoundError(checkpoint)
-        model = model.to_empty(device="cpu")
-        model.load_state_dict(sd)
-        model = model.to(self.device).requires_grad_(False).eval()
-        if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        self.model = model
+        self.model = load_unet2d(checkpoint, ucfg, subfolder, dtype, self.device)
         self.schedule = NoiseSchedule.create(1000, "linear", device=self.device)
         self._served = set()
         self._lock = threading.Lock()

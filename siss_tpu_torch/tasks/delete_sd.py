@@ -68,7 +68,7 @@ from siss_tpu_torch.tasks.base import Task, boundary_crossed
 from siss_tpu_torch.train import (DeletionStepConfig, TrainState, build_deletion_train_step,
                                   build_optimizer, cond_unet_eps_apply)
 from siss_tpu_torch.utils import CheckpointManager, PreemptionGuard
-from siss_tpu_torch.utils.checkpoint import read_state_dict, weights_file
+from siss_tpu_torch.utils.checkpoint import read_weights
 
 
 class _Images:
@@ -389,13 +389,15 @@ class DeleteSD(Task):
                 CLIPTextConfig.sd_v1())
 
     def _load_weights(self, sub: str, model: torch.nn.Module) -> None:
-        """``<pretrained_model_name_or_path>/<sub>/``'s state dict, if any."""
+        """``<pretrained_model_name_or_path>/<sub>/``'s state dict, if any
+        (``read_weights``: a bundle item or a diffusers or transformers
+        weight file)."""
         path = os.path.abspath(os.path.join(str(self.cfg.pretrained_model_name_or_path), sub))
-        found = weights_file(path)
-        if found is None:
+        sd = read_weights(path)
+        if sd is None:
             print(f"[delete_sd] WARNING: no converted weights at {path}; using random init")
             return
-        model.load_state_dict(read_state_dict(found))
+        model.load_state_dict(sd)
 
     def _sd_metrics(self, metrics_cfg):
         """The SD metrics turned on in ``metrics_cfg`` whose models load, by

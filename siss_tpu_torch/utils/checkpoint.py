@@ -72,6 +72,33 @@ def read_state_dict(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def read_weights(directory: str) -> Optional[dict]:
+    """The state dict in ``directory``: a bundle item's ``item.pt``, else
+    the first of ``WEIGHT_FILES``; None if it holds neither."""
+    item = os.path.join(directory, ITEM_FILE)
+    found = item if os.path.isfile(item) else weights_file(directory)
+    return None if found is None else read_state_dict(found)
+
+
+def load_frozen(make, weights, device="cpu") -> torch.nn.Module:
+    """The module ``make()`` builds, built on the meta device (no random
+    initialisation runs) and given ``weights``: a directory
+    (``read_weights``), or a function of the module that returns its state
+    dict. Frozen and in eval mode on ``device``."""
+    with torch.device("meta"):
+        model = make()
+    if callable(weights):
+        sd = weights(model)
+    else:
+        sd = read_weights(weights)
+        if sd is None:
+            raise FileNotFoundError(f"no state dict under {weights} (one of "
+                                    f"{(ITEM_FILE, *WEIGHT_FILES)})")
+    model = model.to_empty(device="cpu")
+    model.load_state_dict(sd)
+    return model.to(device).requires_grad_(False).eval()
+
+
 class CheckpointManager:
     """``async_save=True`` moves the disk write (and rotation) to one
     background thread; the device-to-host copy stays in ``save_bundle``, so

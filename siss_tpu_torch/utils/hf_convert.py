@@ -20,7 +20,9 @@ from typing import Dict, List
 import torch
 from torch import nn
 
-from siss_tpu_torch.utils.checkpoint import read_state_dict
+from siss_tpu_torch.device import resolve_device
+from siss_tpu_torch.utils.checkpoint import (ITEM_FILE, CheckpointManager, load_frozen,
+                                             read_state_dict)
 
 #: The file names a diffusers model directory may hold, in the JAX package's
 #: order of preference.
@@ -121,4 +123,40 @@ def import_hf_unet(model_dir: str, model: nn.Module) -> nn.Module:
     """Load a diffusers model directory (``config.json`` and its weights)
     into ``model`` strictly; returns ``model``."""
     model.load_state_dict(convert_unet2d(load_torch_state_dict(model_dir), model))
+    return model
+
+
+def read_unet_weights(checkpoint: str, model: nn.Module,
+                      subfolder: str = "unet") -> Dict[str, torch.Tensor]:
+    """``model``'s state dict from ``checkpoint``: a port bundle
+    (``checkpoint-<n>`` holding ``<subfolder>/item.pt``, or ``<run
+    dir>/latest``, the run's newest bundle), else a diffusers snapshot
+    (``<subfolder>/`` holding the model files), model directory or
+    state-dict file, under modern or pre-0.18 names (``convert_unet2d``)."""
+    path = checkpoint.rstrip("/")
+    root, leaf = os.path.split(path)
+    if leaf == "latest" and not os.path.exists(path) and os.path.isdir(root):
+        path = CheckpointManager(root).latest() or path
+    item = os.path.join(path, subfolder, ITEM_FILE)
+    if os.path.isfile(item):
+        return read_state_dict(item)
+    if not os.path.exists(path):
+        raise FileNotFoundError(checkpoint)
+    sub = os.path.join(path, subfolder)
+    return convert_unet2d(load_torch_state_dict(sub if os.path.isdir(sub) else path), model)
+
+
+def load_unet2d(checkpoint: str, config, subfolder: str = "unet",
+                dtype: torch.dtype = torch.float32, device="cuda") -> nn.Module:
+    """A ``UNet2D(config)`` computing in ``dtype`` with ``checkpoint``'s
+    weights (``read_unet_weights``), frozen and in eval mode on ``device``
+    (channels_last on the card). It is built on the meta device: no random
+    initialisation runs."""
+    from siss_tpu_torch.models import UNet2D
+
+    dev = resolve_device(device)
+    model = load_frozen(lambda: UNet2D(config, dtype=dtype),
+                        lambda m: read_unet_weights(checkpoint, m, subfolder), dev)
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
     return model

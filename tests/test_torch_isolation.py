@@ -48,19 +48,37 @@ def test_imports_no_jax():
             "siss_tpu_torch.parallel.multihost", "siss_tpu_torch.parallel.fsdp",
             "siss_tpu_torch.parallel.tensor", "siss_tpu_torch.serve",
             "siss_tpu_torch.data.shapes", "siss_tpu_torch.utils.export",
-            "siss_tpu_torch.utils.hf_convert"} <= set(mods)
+            "siss_tpu_torch.utils.hf_convert", "siss_tpu_torch.examples.celeb_sampler",
+            "siss_tpu_torch.examples.likelihood_eval", "siss_tpu_torch.examples.membership_curve",
+            "siss_tpu_torch.examples.sd_inference",
+            "siss_tpu_torch.examples.inference_time_mitigation",
+            "siss_tpu_torch.examples.sscd_score", "siss_tpu_torch.sd_memorization_demo",
+            "siss_tpu_torch.make_tshirt_dataset"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'siss_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'siss_tpu', 'examples', 'scripts'))\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     out = _run(["-c", code], cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# Each example and the demo without --device, with the options it requires.
+EXAMPLE_ARGS = {
+    "examples.celeb_sampler": ["--checkpoint", "/nonexistent"],
+    "examples.likelihood_eval": ["--checkpoint", "/nonexistent", "--images", "a.png"],
+    "examples.membership_curve": ["--checkpoint", "/nonexistent", "--npz", "/nonexistent.npz"],
+    "examples.sd_inference": ["--model", "/nonexistent", "--prompt", "a"],
+    "examples.inference_time_mitigation": ["--model", "/nonexistent", "--prompt", "a"],
+    "examples.sscd_score": ["--model", "/nonexistent.pt", "--target", "a.png", "--images",
+                            "b.png"],
+    "sd_memorization_demo": ["--out", "/nonexistent/never-written"],
+}
+
+
 @pytest.mark.parametrize("entry", ["schedule", "unet", "sd_schedule", "unet_cond", "vae",
                                    "clip_text", "clip_vision", "kmeans", "clip_iqa",
-                                   "distributed", "serve"])
+                                   "distributed", "serve", *EXAMPLE_ARGS])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -101,6 +119,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             from siss_tpu_torch.serve import SamplerService
 
             SamplerService("/nonexistent/checkpoint", arch="mnist_tshirt")
+        elif entry in EXAMPLE_ARGS:
+            import importlib
+
+            importlib.import_module(f"siss_tpu_torch.{entry}").main(EXAMPLE_ARGS[entry])
         elif entry == "clip_iqa":
             from siss_tpu_torch.metrics.clip_iqa import CLIPIQA
 
