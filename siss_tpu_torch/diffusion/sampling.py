@@ -8,6 +8,11 @@ starting noise) and ``step_noise`` (one tensor per step) are drawn from
 ``generator`` on the samples' device when not given, so a test can hand in
 the JAX package's draws. ``eps_fn(x, t, cond)`` takes NHWC latents and a [B]
 integer timestep tensor.
+
+Each public sampler is one ``sample.request`` span (``utils.spans``); in
+it each model call (with CFG's concatenation) is a ``sample.unet`` span,
+and each scheduler update (the step noise, CFG's combine and noise norms)
+a ``sample.update`` span.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from siss_tpu_torch.diffusion.schedule import (
     ddpm_step,
     spaced_timesteps,
 )
+from siss_tpu_torch.utils.spans import span
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
@@ -53,6 +59,7 @@ def cfg_branches(eps_fn: EpsFn, x: torch.Tensor, t: int, both: torch.Tensor
     return eps_both[:B], eps_both[B:] - eps_both[:B]
 
 
+@span("sample.request")
 @torch.inference_mode()
 def sample_ddpm(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
                 num_inference_steps: int = 50, conditioning: Any = None,
@@ -66,12 +73,15 @@ def sample_ddpm(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
     ts, prev = _timestep_grid(schedule, num_inference_steps)
     x = _start(shape, generator, x_init, dtype, device)
     for i, (t, p) in enumerate(zip(ts, prev)):
-        eps = eps_fn(x, _t_batch(t, shape[0], device), conditioning)
-        x = ddpm_step(schedule, x, eps, t, p, None if step_noise is None else step_noise[i],
-                      generator)
+        with span("sample.unet"):
+            eps = eps_fn(x, _t_batch(t, shape[0], device), conditioning)
+        with span("sample.update"):
+            x = ddpm_step(schedule, x, eps, t, p, None if step_noise is None else step_noise[i],
+                          generator)
     return x
 
 
+@span("sample.request")
 @torch.inference_mode()
 def sample_ddim(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
                 num_inference_steps: int = 50, conditioning: Any = None, eta: float = 0.0,
@@ -83,12 +93,16 @@ def sample_ddim(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
     ts, prev = _timestep_grid(schedule, num_inference_steps)
     x = _start(shape, generator, x_init, dtype, device)
     for i, (t, p) in enumerate(zip(ts, prev)):
-        eps = eps_fn(x, _t_batch(t, shape[0], device), conditioning)
-        x = ddim_step(schedule, x, eps, t, p, eta=eta,
-                      noise=None if step_noise is None else step_noise[i], generator=generator)
+        with span("sample.unet"):
+            eps = eps_fn(x, _t_batch(t, shape[0], device), conditioning)
+        with span("sample.update"):
+            x = ddim_step(schedule, x, eps, t, p, eta=eta,
+                          noise=None if step_noise is None else step_noise[i],
+                          generator=generator)
     return x
 
 
+@span("sample.request")
 @torch.inference_mode()
 def sample_ddim_cfg(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
                     cond_embeds: torch.Tensor, uncond_embeds: torch.Tensor,
@@ -114,17 +128,21 @@ def sample_ddim_cfg(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ..
     dims = tuple(range(1, x.ndim))
     uncond_norms, text_norms = [], []
     for i, (t, p) in enumerate(zip(ts, prev)):
-        eps_uncond, delta = cfg_branches(eps_fn, x, t, both)
-        if track_noise_norm:
-            uncond_norms.append(torch.linalg.vector_norm(eps_uncond.float(), dim=dims))
-            text_norms.append(torch.linalg.vector_norm(delta.float(), dim=dims))
-        x = ddim_step(schedule, x, eps_uncond + guidance_scale * delta, t, p, eta=eta,
-                      noise=None if step_noise is None else step_noise[i], generator=generator)
+        with span("sample.unet"):
+            eps_uncond, delta = cfg_branches(eps_fn, x, t, both)
+        with span("sample.update"):
+            if track_noise_norm:
+                uncond_norms.append(torch.linalg.vector_norm(eps_uncond.float(), dim=dims))
+                text_norms.append(torch.linalg.vector_norm(delta.float(), dim=dims))
+            x = ddim_step(schedule, x, eps_uncond + guidance_scale * delta, t, p, eta=eta,
+                          noise=None if step_noise is None else step_noise[i],
+                          generator=generator)
     if not track_noise_norm:
         return x, None
     return x, {"uncond_norm": torch.stack(uncond_norms), "text_norm": torch.stack(text_norms)}
 
 
+@span("sample.request")
 @torch.inference_mode()
 def denoise_from_t(eps_fn: EpsFn, schedule: NoiseSchedule, x_t: torch.Tensor, t_start: int,
                    conditioning: Any = None, generator: Optional[torch.Generator] = None,
@@ -133,12 +151,15 @@ def denoise_from_t(eps_fn: EpsFn, schedule: NoiseSchedule, x_t: torch.Tensor, t_
     timestep: the denoising injection."""
     x = x_t
     for i, t in enumerate(range(int(t_start), -1, -1)):
-        eps = eps_fn(x, _t_batch(t, x_t.shape[0], x_t.device), conditioning)
-        x = ddpm_step(schedule, x, eps, t, t - 1,
-                      None if step_noise is None else step_noise[i], generator)
+        with span("sample.unet"):
+            eps = eps_fn(x, _t_batch(t, x_t.shape[0], x_t.device), conditioning)
+        with span("sample.update"):
+            x = ddpm_step(schedule, x, eps, t, t - 1,
+                          None if step_noise is None else step_noise[i], generator)
     return x
 
 
+@span("sample.request")
 @torch.inference_mode()
 def sample_dpm_solver_2m(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[int, ...],
                          num_inference_steps: int = 15, conditioning: Any = None,
@@ -152,6 +173,7 @@ def sample_dpm_solver_2m(eps_fn: EpsFn, schedule: NoiseSchedule, shape: Tuple[in
     return _dpm_solver_2m_core(eps_fn, schedule, x, ts, conditioning)
 
 
+@span("sample.request")
 @torch.inference_mode()
 def denoise_from_t_dpm(eps_fn: EpsFn, schedule: NoiseSchedule, x_t: torch.Tensor, t_start: int,
                        num_inference_steps: int = 10, conditioning: Any = None) -> torch.Tensor:
@@ -177,20 +199,24 @@ def _dpm_solver_2m_core(eps_fn: EpsFn, schedule: NoiseSchedule, x: torch.Tensor,
 
     x0_prev = None
     for i, t in enumerate(ts):
-        eps = eps_fn(x, _t_batch(t, x.shape[0], x.device), conditioning)
-        x0 = (x - float(sigma_tab[t]) * eps) / float(gamma_tab[t])
-        if schedule.clip_sample:
-            x0 = torch.clamp(x0, -clip, clip)
-        h = lam[i + 1] - lam[i]
-        r = (lam[i] - lam[max(i - 1, 0)]) / h
-        # lower_order_final: the last step's h (to the clean point) is large
-        # and second-order extrapolation there is unstable.
-        use_second = 0 < i < len(ts) - 1 and bool(torch.isfinite(r)) and float(r.abs()) > 1e-6
-        if use_second:
-            inv = 1.0 / (2.0 * r)
-            d = float(1.0 + inv) * x0 - float(inv) * x0_prev
-        else:
-            d = x0
-        x = float(sigma_all[i + 1] / sigma_all[i]) * x - float(gamma_all[i + 1] * torch.expm1(-h)) * d
-        x0_prev = x0
+        with span("sample.unet"):
+            eps = eps_fn(x, _t_batch(t, x.shape[0], x.device), conditioning)
+        with span("sample.update"):
+            x0 = (x - float(sigma_tab[t]) * eps) / float(gamma_tab[t])
+            if schedule.clip_sample:
+                x0 = torch.clamp(x0, -clip, clip)
+            h = lam[i + 1] - lam[i]
+            r = (lam[i] - lam[max(i - 1, 0)]) / h
+            # lower_order_final: the last step's h (to the clean point) is
+            # large and second-order extrapolation there is unstable.
+            use_second = (0 < i < len(ts) - 1 and bool(torch.isfinite(r))
+                          and float(r.abs()) > 1e-6)
+            if use_second:
+                inv = 1.0 / (2.0 * r)
+                d = float(1.0 + inv) * x0 - float(inv) * x0_prev
+            else:
+                d = x0
+            x = (float(sigma_all[i + 1] / sigma_all[i]) * x
+                 - float(gamma_all[i + 1] * torch.expm1(-h)) * d)
+            x0_prev = x0
     return x

@@ -7,11 +7,15 @@ UNet, microbatch 16 × 4 accumulation steps, fp32 params with bf16 autocast,
 AdamW, EMA, t ≡ 999); ``sd`` the SD-1.x latent step of
 ``configs/delete_sd.yaml`` (``make_sd_path``); ``tshirt`` the unlearning
 step of ``configs/delete_tshirt.yaml`` (``make_tshirt_path``). Weights are
-random from a seed; both TF32 switches are off. The script runs one warm-up step, times three steps on the host
-clock, then traces one step with ``torch.profiler`` and prints the device
-time by kernel family and the device's busy share of the step.
-``chip_smoke.py`` drives the same steps through ``make_main_path`` and
-``make_sd_path``.
+random from a seed; both TF32 switches are off. The script runs one warm-up
+step, times three steps on the host clock, then traces one step with
+``torch.profiler`` while recording the step's spans (``utils.spans``), and
+prints the device's busy share of the step (the union of kernel
+intervals), the device time of the kernels launched in each span (the
+innermost span open at a kernel's launch, on whichever thread launched it:
+the autograd engine launches a backward's kernels from its own), and the
+longest kernels. ``chip_smoke.py`` drives the same steps through
+``make_main_path`` and ``make_sd_path``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from collections import defaultdict
 
 import torch
 
+from siss_tpu_torch.utils import spans
+
 MAIN_ACCUM, MAIN_MB = 4, 16
 SD_ACCUM, SD_MB = 16, 1
 # configs/delete_sd.yaml's optimizer and step knobs.
@@ -31,22 +37,6 @@ SD_ADAMW = {"_target_": "torch.optim.AdamW", "lr": 1e-5, "betas": [0.9, 0.999],
 SD_STEP_KW = dict(loss_params=(("lambd", 0.5),), scaling_norm=750.0, max_grad_norm=1.0,
                   grad_accum_steps=SD_ACCUM, t_min=999, t_max=1000)
 TSHIRT_MB = 64
-
-# Kernel-name fragments → family, first match wins.
-_FAMILIES = (
-    ("siss::", "siss epilogue (this repo's CUDA kernels)"),
-    ("flash::", "flash attention (this repo's CUDA kernels)"),
-    ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),
-    ("implicit", "convolution (cuDNN)"), ("wgrad", "convolution (cuDNN)"),
-    ("dgrad", "convolution (cuDNN)"), ("fprop", "convolution (cuDNN)"),
-    ("gemm", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),
-    ("group_norm", "group norm"), ("GroupNorm", "group norm"),
-    ("multi_tensor", "optimizer / foreach"), ("foreach", "optimizer / foreach"),
-    ("reduce", "reductions"), ("softmax", "softmax"),
-    ("elementwise", "elementwise"), ("vectorized", "elementwise"),
-    ("copy", "copies / casts"), ("cat", "copies / casts"), ("upsample", "upsample"),
-)
-
 
 def make_main_path(device="cuda", dtype=torch.bfloat16, mesh=None):
     """(state, step, batch, generator) of the flagship step on ``device``;
@@ -140,11 +130,33 @@ def make_tshirt_path(device="cuda"):
 PATHS = {"celeb": make_main_path, "sd": make_sd_path, "tshirt": make_tshirt_path}
 
 
-def _family(name: str) -> str:
-    for frag, fam in _FAMILIES:
-        if frag in name:
-            return fam
-    return "other"
+def _kernels_by_span(events, recorded):
+    """(device ms of the kernels launched in each span, "(no span)" for the
+    rest; busy ms, the union of the kernel intervals; {kernel: [ms, count]}).
+    A kernel's launch is the runtime or driver call of its correlation id."""
+    cuda = torch.autograd.DeviceType.CUDA
+    launches, kernels = {}, []
+    for e in events:
+        if e.device_type() == cuda:
+            if not e.is_user_annotation() and e.end_ns() > e.start_ns():
+                kernels.append(e)
+        elif not e.is_user_annotation() and e.name().startswith("cu"):
+            launches[e.correlation_id()] = e.start_ns()     # a runtime or driver call
+    by_span, by_kernel = defaultdict(float), defaultdict(lambda: [0.0, 0])
+    busy, cursor = 0, None
+    for k in sorted(kernels, key=lambda e: e.start_ns()):
+        ms = (k.end_ns() - k.start_ns()) / 1e6
+        t = launches.get(k.linked_correlation_id() or k.correlation_id())
+        inner = min((s for s in recorded if t is not None and s.start_ns <= t < s.end_ns),
+                    key=lambda s: s.end_ns - s.start_ns, default=None)
+        by_span["(no span)" if inner is None else inner.name] += ms
+        by_kernel[k.name()][0] += ms
+        by_kernel[k.name()][1] += 1
+        start = k.start_ns() if cursor is None else max(k.start_ns(), cursor)
+        if cursor is None or k.end_ns() > cursor:
+            busy += k.end_ns() - start
+            cursor = k.end_ns()
+    return by_span, busy / 1e6, by_kernel
 
 
 def main() -> None:
@@ -169,26 +181,23 @@ def main() -> None:
     print(f"card: {torch.cuda.get_device_name(0)}, workload {args.workload}")
     print(f"step seconds {[round(s, 4) for s in seconds]}, median {statistics.median(seconds):.4f}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Device activity only, as the benchmark traces: with host ops recorded
+    # too, a kernel's linked correlation names its op, not its launch.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spans.start_recording()
         t0 = time.perf_counter()
         state, _ = step(state, batch, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_family, by_kernel = defaultdict(float), defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        # A user annotation (e.g. "Optimizer.step#AdamW.step") also appears on
-        # the device's timeline, spanning the kernels it encloses: not busy time.
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(ev, "is_user_annotation", False)):
-            ms = ev.time_range.elapsed_us() / 1e3
-            by_family[_family(ev.name)] += ms
-            by_kernel[ev.name][0] += ms
-            by_kernel[ev.name][1] += 1
-    busy = sum(by_family.values())
+        recorded = spans.stop_recording()
+    by_span, busy, by_kernel = _kernels_by_span(prof.profiler.kineto_results.events(), recorded)
     print(f"traced step: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / (wall * 1e3):.1f}%), idle {100 * (1 - busy / (wall * 1e3)):.1f}%")
-    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}%  {fam}")
+          f"({100 * busy / (wall * 1e3):.1f}%, the union of kernel intervals), "
+          f"idle {100 * (1 - busy / (wall * 1e3)):.1f}%")
+    print("device time of the kernels launched in each span:")
+    total = sum(by_span.values())
+    for name, ms in sorted(by_span.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:9.2f} ms {100 * ms / total:5.1f}%  {name}")
     print("top kernels:")
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.2f} ms x{n:<5d} {name[:110]}")

@@ -107,6 +107,7 @@ from siss_tpu_torch.parallel import all_reduce_mean, gather_rows, rank_rows
 from siss_tpu_torch.parallel.fsdp import Sharding
 from siss_tpu_torch.train.ema import ema_update
 from siss_tpu_torch.train.state import TrainState
+from siss_tpu_torch.utils.spans import span
 
 EpsApply = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor, Any], torch.Tensor]
 # (model, noisy latents [B, H, W, C], timesteps [B], conditioning) -> eps [B, H, W, C]
@@ -267,12 +268,13 @@ def _working_params(model: torch.nn.Module, sharding: Sharding, dtype: Optional[
     params = list(model.parameters())
     if dtype is None and not sharding.gathers:
         return params, lambda fn: fn(model)
-    gathered = sharding.gather(dtype=dtype, axes=("fsdp",))
-    leaves = [p if t.dtype == p.dtype and lay.fsdp is None else t.requires_grad_()
-              for p, t, lay in zip(params, gathered, sharding.layouts)]
-    compute = getattr(model, "dtype", torch.float32)
-    swapped = {f"model.{name}": c if c.dtype == compute else c.to(p.dtype)
-               for name, p, c in zip(sharding.names, params, leaves)}
+    with span("train.gather"):
+        gathered = sharding.gather(dtype=dtype, axes=("fsdp",))
+        leaves = [p if t.dtype == p.dtype and lay.fsdp is None else t.requires_grad_()
+                  for p, t, lay in zip(params, gathered, sharding.layouts)]
+        compute = getattr(model, "dtype", torch.float32)
+        swapped = {f"model.{name}": c if c.dtype == compute else c.to(p.dtype)
+                   for name, p, c in zip(sharding.names, params, leaves)}
     wrapper = _Call(model)
 
     def call(fn):
@@ -318,13 +320,16 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
     def two_pulls(loss_x, loss_a, params):
         """g_x and g_a from one forward: two pulls, or one batched pull."""
         if cfg.batched_dual_backward:
-            # The cotangents of (loss_x, loss_a) for both pulls: (1, 0), (0, 1).
-            seeds = (torch.tensor([1.0, 0.0], device=loss_x.device),
-                     torch.tensor([0.0, 1.0], device=loss_x.device))
-            g = torch.autograd.grad((loss_x, loss_a), params, seeds, is_grads_batched=True)
+            with span("train.pulls"):
+                # The cotangents of (loss_x, loss_a) for both pulls: (1, 0), (0, 1).
+                seeds = (torch.tensor([1.0, 0.0], device=loss_x.device),
+                         torch.tensor([0.0, 1.0], device=loss_x.device))
+                g = torch.autograd.grad((loss_x, loss_a), params, seeds, is_grads_batched=True)
             return [t[0] for t in g], [t[1] for t in g]
-        g_x = torch.autograd.grad(loss_x, params, retain_graph=True)
-        return g_x, torch.autograd.grad(loss_a, params)
+        with span("train.pull_x"):
+            g_x = torch.autograd.grad(loss_x, params, retain_graph=True)
+        with span("train.pull_a"):
+            return g_x, torch.autograd.grad(loss_a, params)
 
     def microbatch_terms(model, keep, forget, cond, dr, dyn):
         """The loss method's outputs and per-sample stats for one microbatch."""
@@ -346,8 +351,11 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
     if cfg.is_scalar_path:
 
         def micro_grads(params, model, keep, forget, cond, dr, dyn, mb):
-            out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
-            return torch.autograd.grad(out.loss.sum() / mb, params), None, stats
+            with span("train.forward"):
+                out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
+                loss = out.loss.sum() / mb
+            with span("train.pull"):
+                return torch.autograd.grad(loss, params), None, stats
 
     elif cfg.is_fused_siss:
         lambd = float(static_params["lambd"])
@@ -357,24 +365,29 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
                 raise ValueError("dynamic lambd is not supported by the fused SISS path; "
                                  "set fused_siss=False to decay lambd at runtime")
             noise, t = dr["noise"], dr["t"]
-            mask = (dr["u"] > lambd).reshape((keep.shape[0],) + (1,) * (keep.ndim - 1))
-            mix = torch.where(mask, q_sample(schedule, keep, noise, t),
-                              q_sample(schedule, forget, noise, t))
-            preds = eps_apply(model, mix, t, cond)
-            wlx, wla, aux = siss_weighted_sums(preds, mix, keep, forget, schedule.gamma[t],
-                                               schedule.sigma[t], lambd)
-            stats = {"loss_x": _per_sample(aux["lx_mean"]), "loss_a": _per_sample(aux["la_mean"]),
-                     "importance_weight_x": _per_sample(aux["iw_x"]),
-                     "importance_weight_a": _per_sample(aux["iw_a"])}
+            with span("train.forward"):
+                mask = (dr["u"] > lambd).reshape((keep.shape[0],) + (1,) * (keep.ndim - 1))
+                mix = torch.where(mask, q_sample(schedule, keep, noise, t),
+                                  q_sample(schedule, forget, noise, t))
+                preds = eps_apply(model, mix, t, cond)
+            with span("train.siss"):
+                wlx, wla, aux = siss_weighted_sums(preds, mix, keep, forget, schedule.gamma[t],
+                                                   schedule.sigma[t], lambd)
+                stats = {"loss_x": _per_sample(aux["lx_mean"]),
+                         "loss_a": _per_sample(aux["la_mean"]),
+                         "importance_weight_x": _per_sample(aux["iw_x"]),
+                         "importance_weight_a": _per_sample(aux["iw_a"])}
+                loss_x, loss_a = wlx / mb, wla / mb
             # ONE forward, TWO backward pulls over the shared graph.
-            return (*two_pulls(wlx / mb, wla / mb, params), stats)
+            return (*two_pulls(loss_x, loss_a, params), stats)
 
     elif cfg.is_shared_forward:
 
         def micro_grads(params, model, keep, forget, cond, dr, dyn, mb):
-            out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
-            return (*two_pulls(out.weighted_loss_x.sum() / mb, out.weighted_loss_a.sum() / mb,
-                               params), stats)
+            with span("train.forward"):
+                out, stats = microbatch_terms(model, keep, forget, cond, dr, dyn)
+                loss_x, loss_a = out.weighted_loss_x.sum() / mb, out.weighted_loss_a.sum() / mb
+            return (*two_pulls(loss_x, loss_a, params), stats)
 
     else:  # double_forward_with_neg_del, erasediff
 
@@ -382,15 +395,25 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             # Each term through only its own UNet forward (2 forwards + 2
             # backwards; the loss method would run both forwards per term).
             t = dr["t"]
-            noise, input_noise = noises(dr)
-            target_a = dr["uniform"] if cfg.loss_fn == "erasediff" else noise
-            lx = (eps_apply(model, q_sample(schedule, keep, input_noise, t), t, cond) - noise) ** 2
-            g_x = torch.autograd.grad(lx.sum() / mb, params)
-            la = (eps_apply(model, q_sample(schedule, forget, input_noise, t), t, cond)
-                  - target_a) ** 2
-            g_a = torch.autograd.grad(la.sum() / mb, params)
-            return g_x, g_a, {"loss_x": _per_sample(lx), "loss_a": _per_sample(la)}
+            with span("train.forward"):
+                noise, input_noise = noises(dr)
+                target_a = dr["uniform"] if cfg.loss_fn == "erasediff" else noise
+                lx = (eps_apply(model, q_sample(schedule, keep, input_noise, t), t, cond)
+                      - noise) ** 2
+                stats = {"loss_x": _per_sample(lx)}
+                loss = lx.sum() / mb
+            with span("train.pull_x"):
+                g_x = torch.autograd.grad(loss, params)
+            with span("train.forward"):
+                la = (eps_apply(model, q_sample(schedule, forget, input_noise, t), t, cond)
+                      - target_a) ** 2
+                stats["loss_a"] = _per_sample(la)
+                loss = la.sum() / mb
+            with span("train.pull_a"):
+                g_a = torch.autograd.grad(loss, params)
+            return g_x, g_a, stats
 
+    @span("train.step")
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
              dyn_scalars: Optional[Dict[str, Any]] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None):
@@ -417,8 +440,9 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
 
         # The whole parameters (gathered once, a step) live through every pull.
         grad_of, call = _working_params(model, sharding, cast_dtype)
-        g_x_acc = sharding.zeros(acc_dtype)
-        g_a_acc = None if cfg.is_scalar_path else sharding.zeros(acc_dtype)
+        with span("train.accumulate"):
+            g_x_acc = sharding.zeros(acc_dtype)
+            g_a_acc = None if cfg.is_scalar_path else sharding.zeros(acc_dtype)
         stats_mb: Dict[str, List[torch.Tensor]] = {}
         for a in range(A):
             cond = None if cond_all is None else cond_all[a]
@@ -427,32 +451,36 @@ def build_deletion_train_step(eps_apply: EpsApply, schedule: NoiseSchedule,
             with contiguous_norm_inputs(model, cfg.batched_dual_backward):
                 g_x, g_a, stats = call(lambda m: micro_grads(grad_of, m, keep_all[a],
                                                              forget_all[a], cond, dr, dyn, mb))
-            sharding.scatter_add_(g_x, g_x_acc)
-            if g_a is not None:
-                sharding.scatter_add_(g_a, g_a_acc)
+            with span("train.accumulate"):
+                sharding.scatter_add_(g_x, g_x_acc)
+                if g_a is not None:
+                    sharding.scatter_add_(g_a, g_a_acc)
             del g_x, g_a
             for k, v in stats.items():
                 stats_mb.setdefault(k, []).append(v)
         del grad_of, call
-        # Sum over the data ranks, then the mean over microbatches
-        # (Accelerate divides by accumulation steps).
-        sharding.finish_(g_x_acc)
-        torch._foreach_div_(g_x_acc, A)
+        with span("train.accumulate"):
+            # Sum over the data ranks, then the mean over microbatches
+            # (Accelerate divides by accumulation steps).
+            for acc in (g_x_acc, g_a_acc):
+                if acc is not None:
+                    sharding.finish_(acc)
+                    torch._foreach_div_(acc, A)
 
-        # Every rank's per-sample values ([stat, A, mb]), in one all-reduce.
-        names = list(stats_mb)
-        per_sample = gather_rows(torch.stack([torch.stack(stats_mb[k]) for k in names]), axis=2,
-                                 mesh=mesh)
-        metrics = {}
-        for k, v in zip(names, per_sample):
-            metrics.update(_tensor_stats(v, k))
+        with span("train.stats"):
+            # Every rank's per-sample values ([stat, A, mb]), in one all-reduce.
+            names = list(stats_mb)
+            per_sample = gather_rows(torch.stack([torch.stack(stats_mb[k]) for k in names]),
+                                     axis=2, mesh=mesh)
+            metrics = {}
+            for k, v in zip(names, per_sample):
+                metrics.update(_tensor_stats(v, k))
 
-        if cfg.is_scalar_path:
-            final, pre_clip_norm = clip_by_global_norm(g_x_acc, cfg.max_grad_norm, sharding)
-        else:
-            sharding.finish_(g_a_acc)
-            torch._foreach_div_(g_a_acc, A)
-            final, pre_clip_norm = _surgery(cfg, sharding, g_x_acc, g_a_acc, metrics)
+        with span("train.surgery"):
+            if cfg.is_scalar_path:
+                final, pre_clip_norm = clip_by_global_norm(g_x_acc, cfg.max_grad_norm, sharding)
+            else:
+                final, pre_clip_norm = _surgery(cfg, sharding, g_x_acc, g_a_acc, metrics)
         metrics["gradient/pre_clip_norm"] = pre_clip_norm
         _apply_update(state, final, cfg.ema_inv_gamma, cfg.ema_power, cfg.ema_max_decay)
         return state, metrics
@@ -506,16 +534,18 @@ def _apply_update(state: TrainState, grads: Sequence[torch.Tensor], ema_inv_gamm
     the EMA update and the step count, all in place (on this rank's blocks
     under an ``fsdp`` axis)."""
     params = state.sharding.params
-    for p, g in zip(params, grads):
-        p.grad = g.to(p.dtype)
-    lr = state.lr_schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
+    with span("train.optimizer"):
+        for p, g in zip(params, grads):
+            p.grad = g.to(p.dtype)
+        lr = state.lr_schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
     if state.ema is not None:
-        ema_update(state.ema, params, inv_gamma=ema_inv_gamma, power=ema_power,
-                   max_decay=ema_max_decay)
+        with span("train.ema"):
+            ema_update(state.ema, params, inv_gamma=ema_inv_gamma, power=ema_power,
+                       max_decay=ema_max_decay)
     state.step += 1
 
 
@@ -542,6 +572,7 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
     if prediction_type not in ("epsilon", "sample"):
         raise ValueError(prediction_type)
 
+    @span("train.step")
     def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None):
         sharding = state.sharding
@@ -559,18 +590,24 @@ def build_pretrain_step(eps_apply: EpsApply, schedule: NoiseSchedule, *,
         grad_of, call = _working_params(state.model, sharding, None)
 
         def loss_and_grads(model):
-            pred = eps_apply(model, q_sample(schedule, batch, noise, t), t, None)
-            if prediction_type == "epsilon":
-                loss = ((pred - noise) ** 2).mean()
-            else:
-                loss = (snr_weights(schedule, t, pred) * (pred - batch) ** 2).mean()
-            return loss, torch.autograd.grad(loss / n_ranks, grad_of)
+            with span("train.forward"):
+                pred = eps_apply(model, q_sample(schedule, batch, noise, t), t, None)
+                if prediction_type == "epsilon":
+                    loss = ((pred - noise) ** 2).mean()
+                else:
+                    loss = (snr_weights(schedule, t, pred) * (pred - batch) ** 2).mean()
+            with span("train.pull"):
+                return loss, torch.autograd.grad(loss / n_ranks, grad_of)
 
         loss, grads = call(loss_and_grads)
         del grad_of, call
-        grads = sharding.reduce(grads)
-        grads, grad_norm = clip_by_global_norm(grads, max_grad_norm, sharding)
+        with span("train.accumulate"):
+            grads = sharding.reduce(grads)
+        with span("train.surgery"):
+            grads, grad_norm = clip_by_global_norm(grads, max_grad_norm, sharding)
         _apply_update(state, grads, ema_inv_gamma, ema_power, ema_max_decay)
-        return state, {"loss": all_reduce_mean(loss), "gradient/pre_clip_norm": grad_norm}
+        with span("train.stats"):
+            loss = all_reduce_mean(loss)
+        return state, {"loss": loss, "gradient/pre_clip_norm": grad_norm}
 
     return step
